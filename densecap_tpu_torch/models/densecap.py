@@ -1,0 +1,103 @@
+"""DenseCap inference: trunk -> localization -> recognition -> final NMS -> decode.
+
+Twin of `densecap_tpu/models/densecap.py:forward_test` /
+`forward_test_batch`. The JAX package vmaps a single-image function; here
+the batch dimension is real and each image carries its own extent. All
+B*K rows decode together, which equals the vmapped per-image while loops
+because finished rows emit END with logprob 0.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from ..ops.boxes import clip_boxes, xcycwh_to_x1y1x2y2
+from ..ops.nms import nms
+from ..ops.transforms import apply_box_transform
+from .localization import gather_rows, localize_test
+from .vgg16 import dot_f32, frozen
+
+
+class TestOutput(NamedTuple):
+    boxes: torch.Tensor             # (B, K, 4) final xcycwh boxes
+    scores: torch.Tensor            # (B, K) raw objectness logits
+    captions: torch.Tensor          # (B, K, T) int32 tokens (END = V+1)
+    caption_logprobs: torch.Tensor  # (B, K, T) per-token logprobs
+    valid: torch.Tensor             # (B, K) bool
+    num: torch.Tensor               # (B,) int32
+
+
+class DenseCap(nn.Module):
+    """The inference model. Build it with `utils.checkpoint.to_torch`.
+
+    Padded output slots hold index 0 of the final NMS, so their boxes,
+    scores and captions are those of the top box, not zeros; `valid`
+    marks the real ones.
+    """
+
+    def __init__(self, cfg, trunk1, trunk2, rpn, recog, objectness,
+                 box_reg, lm):
+        super().__init__()
+        self.cfg = cfg
+        self.trunk1, self.trunk2, self.rpn, self.recog = (
+            trunk1, trunk2, rpn, recog)
+        self.obj_w, self.obj_b = frozen(objectness[0]), frozen(objectness[1])
+        self.box_w, self.box_b = frozen(box_reg[0]), frozen(box_reg[1])
+        self.lm = lm
+
+    def features(self, images, img_h, img_w):
+        """(B, S, S, 3) f32 BGR mean-subtracted canvases -> (B, 512, S/16,
+        S/16) f32 channels_last, zero past each image's extent."""
+        x = images.permute(0, 3, 1, 2)  # channels_last view of the NHWC input
+        x = self.trunk1(x, img_h, img_w)
+        return self.trunk2(x, torch.floor(img_h / 4.0),
+                           torch.floor(img_w / 4.0))
+
+    @torch.inference_mode()
+    def forward_test_batch(self, images, img_h, img_w, *,
+                           rpn_nms_thresh: Optional[float] = None,
+                           final_nms_thresh: Optional[float] = None,
+                           max_proposals: Optional[int] = None,
+                           use_beam: int = 0) -> TestOutput:
+        """images: (B, S, S, 3) f32 canvases; img_h / img_w: (B,) f32
+        true sizes on the canvas."""
+        if use_beam > 0:
+            raise NotImplementedError("beam search is not ported yet")
+        cfg = self.cfg
+        final_nms = (cfg.test_final_nms_thresh if final_nms_thresh is None
+                     else final_nms_thresh)
+        img_h = img_h.float()
+        img_w = img_w.float()
+        feats = self.features(images, img_h, img_w)
+        loc = localize_test(
+            self.rpn, feats, img_h, img_w, cfg,
+            cfg.anchor_tensor(images.device), nms_thresh=rpn_nms_thresh,
+            max_proposals=max_proposals)
+        B, K = loc.roi_boxes.shape[:2]
+
+        codes = self.recog(loc.roi_feats.flatten(0, 1))
+        scores = (dot_f32(codes, self.obj_w) + self.obj_b)[:, 0].reshape(B, K)
+        trans = (dot_f32(codes, self.box_w) + self.box_b).reshape(B, K, 4)
+        boxes = apply_box_transform(loc.roi_boxes, trans)
+        if cfg.clip_final_boxes:
+            boxes, _ = clip_boxes(boxes, img_w[:, None], img_h[:, None])
+        codes = codes.reshape(B, K, -1)
+
+        valid = loc.roi_valid
+        if final_nms > 0:
+            idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores, final_nms,
+                             K, valid=loc.roi_valid)
+            boxes, scores, codes = (gather_rows(x, idx)
+                                    for x in (boxes, scores, codes))
+
+        captions, lps = self.lm.greedy_decode(codes.reshape(B * K, -1),
+                                              cfg.seq_length)
+        T = captions.shape[1]
+        return TestOutput(
+            boxes=boxes, scores=scores,
+            captions=captions.reshape(B, K, T),
+            caption_logprobs=lps.reshape(B, K, T),
+            valid=valid, num=valid.sum(1, dtype=torch.int32))

@@ -1,0 +1,69 @@
+"""Box geometry: coordinate conversions, pascal IoU and clipping.
+
+Twin of `densecap_tpu/ops/boxes.py`. Boxes are `(..., 4)` in the
+reference's 1-indexed pixel convention; every function broadcasts over
+leading dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def xcycwh_to_x1y1x2y2(boxes):
+    """(xc, yc, w, h) -> (x1, y1, x2, y2) with the (w - 1) / 2 offset."""
+    xc, yc, w, h = boxes.unbind(-1)
+    return torch.stack([xc - (w - 1) / 2.0, yc - (h - 1) / 2.0,
+                        xc + (w - 1) / 2.0, yc + (h - 1) / 2.0], dim=-1)
+
+
+def x1y1x2y2_to_xcycwh(boxes):
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    return torch.stack([(x0 + x1) / 2.0, (y0 + y1) / 2.0, x1 - x0, y1 - y0],
+                       dim=-1)
+
+
+def iou_pascal(boxes1, boxes2):
+    """Pairwise (..., B1, 4) x (..., B2, 4) x1y1x2y2 -> (..., B1, B2).
+
+    Pascal +1 convention: area = (x2 - x1 + 1) * (y2 - y1 + 1), the
+    intersection width (xx2 - xx1 + 1) clamped at 0. The union is
+    `area1 + area2 - inter`, the same f32 operation order as the JAX op,
+    and the order the NMS kernel follows.
+    """
+    b1 = boxes1[..., :, None, :]
+    b2 = boxes2[..., None, :, :]
+    area1 = ((boxes1[..., 2] - boxes1[..., 0] + 1.0)
+             * (boxes1[..., 3] - boxes1[..., 1] + 1.0))
+    area2 = ((boxes2[..., 2] - boxes2[..., 0] + 1.0)
+             * (boxes2[..., 3] - boxes2[..., 1] + 1.0))
+    xx1 = torch.maximum(b1[..., 0], b2[..., 0])
+    yy1 = torch.maximum(b1[..., 1], b2[..., 1])
+    xx2 = torch.minimum(b1[..., 2], b2[..., 2])
+    yy2 = torch.minimum(b1[..., 3], b2[..., 3])
+    iw = torch.clamp_min(xx2 - xx1 + 1.0, 0.0)
+    ih = torch.clamp_min(yy2 - yy1 + 1.0, 0.0)
+    inter = iw * ih
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union
+
+
+def clip_boxes(boxes, x_max, y_max):
+    """Clip xcycwh boxes to [1, x_max] x [1, y_max]; return (clipped, valid).
+
+    x_max / y_max are python floats or tensors that broadcast against
+    `boxes[..., 0]` (one bound per image in a batch). Clamps x1 to
+    [1, x_max - 1] and x2 to [2, x_max] (same for y) and marks a box valid
+    when x2 > x1 and y2 > y1 after clamping (densecap_tpu clip_boxes with
+    fmt="xcycwh" and x_min = y_min = 1).
+    """
+    bb = xcycwh_to_x1y1x2y2(boxes)
+    x_max = torch.as_tensor(x_max, dtype=bb.dtype, device=bb.device)
+    y_max = torch.as_tensor(y_max, dtype=bb.dtype, device=bb.device)
+    x0 = torch.minimum(torch.clamp_min(bb[..., 0], 1.0), x_max - 1)
+    y0 = torch.minimum(torch.clamp_min(bb[..., 1], 1.0), y_max - 1)
+    x1 = torch.minimum(torch.clamp_min(bb[..., 2], 2.0), x_max)
+    y1 = torch.minimum(torch.clamp_min(bb[..., 3], 2.0), y_max)
+    valid = (x1 > x0) & (y1 > y0)
+    clipped = torch.stack([x0, y0, x1, y1], dim=-1)
+    return x1y1x2y2_to_xcycwh(clipped), valid

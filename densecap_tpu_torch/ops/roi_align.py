@@ -1,0 +1,136 @@
+"""Bilinear RoI align, forward, batched over images.
+
+Twin of `densecap_tpu/ops/roi_align.py:roi_align` (gather formulation):
+
+  * `roi_align_plain`: PyTorch gathers; the CPU path and the reference
+    the CUDA kernel is held against.
+  * `roi_align_cuda`: kernel K2 (`cuda/roi_align.cu`).
+  * `roi_align`: a CPU tensor takes the plain version, a CUDA tensor the
+    kernel.
+
+Inputs: `feats` (B, Hf, Wf, C) channels-last f32 (a padded canvas);
+`boxes` (B, K, 4) xcycwh in 1-indexed image coordinates; `img_h`/`img_w`
+(B,) the true image size of each canvas; `feat_h`/`feat_w` (B,) int the
+cropped feature extent of each image. Output (B, K, out_h, out_w, C) f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda import build
+
+
+def _sample_coords(boxes, img_h, img_w, feat_h, feat_w, out_h, out_w):
+    """Per-box sampling positions on the feature map (0-indexed, clamped
+    to the cropped extent): yf (B, K, out_h), xf (B, K, out_w)."""
+    xc, yc, w, h = boxes.float().unbind(-1)
+    img_h = img_h.float()[:, None]
+    img_w = img_w.float()[:, None]
+    th13 = (2.0 * yc - img_h - 1.0) / (img_h - 1.0)
+    th23 = (2.0 * xc - img_w - 1.0) / (img_w - 1.0)
+    th11 = h / img_h
+    th22 = w / img_w
+    dev = boxes.device
+    gy = torch.linspace(-1.0, 1.0, out_h, dtype=torch.float32, device=dev)
+    gx = torch.linspace(-1.0, 1.0, out_w, dtype=torch.float32, device=dev)
+    y_norm = th11[..., None] * gy + th13[..., None]
+    x_norm = th22[..., None] * gx + th23[..., None]
+    fh = feat_h.float()[:, None, None]
+    fw = feat_w.float()[:, None, None]
+    yf = (y_norm + 1.0) * (fh - 1.0) / 2.0
+    xf = (x_norm + 1.0) * (fw - 1.0) / 2.0
+    yf = torch.minimum(torch.clamp_min(yf, 0.0), fh - 1.0)
+    xf = torch.minimum(torch.clamp_min(xf, 0.0), fw - 1.0)
+    return yf, xf
+
+
+def _check_extent(feat_h, feat_w, Hf, Wf):
+    # One host read per call; an empty or oversized extent would index
+    # outside the image's features.
+    h_lo, h_hi, w_lo, w_hi = torch.stack(
+        [feat_h.min(), feat_h.max(), feat_w.min(), feat_w.max()]).tolist()
+    if min(h_lo, w_lo) < 1 or h_hi > Hf or w_hi > Wf:
+        raise ValueError("roi_align: feature extents must lie in "
+                         f"[1, {Hf}] x [1, {Wf}]")
+
+
+def roi_align_plain(feats, boxes, img_h, img_w, feat_h, feat_w,
+                    out_h=7, out_w=7):
+    """Plain PyTorch RoI align (see module docstring)."""
+    B, Hf, Wf, C = feats.shape
+    K = boxes.shape[1]
+    _check_extent(feat_h, feat_w, Hf, Wf)
+    yf, xf = _sample_coords(boxes, img_h, img_w, feat_h, feat_w,
+                            out_h, out_w)
+
+    def taps(pos, size):
+        p0 = torch.floor(pos)
+        i0 = torch.minimum(p0.long().clamp_min(0), size - 1)
+        i1 = torch.minimum((i0 + 1).clamp_min(0), size - 1)
+        return i0, i1, pos - p0
+
+    sh = feat_h.long()[:, None, None]
+    sw = feat_w.long()[:, None, None]
+    y0, y1, fy = taps(yf, sh)                    # (B, K, out_h)
+    x0, x1, fx = taps(xf, sw)                    # (B, K, out_w)
+    flat = feats.reshape(B * Hf * Wf, C)
+    base = (torch.arange(B, device=feats.device) * Hf)[:, None, None, None]
+
+    def gather(yi, xi):
+        rows = (base + yi[..., :, None]) * Wf + xi[..., None, :]
+        return flat[rows.reshape(-1)].reshape(B, K, out_h, out_w, C)
+
+    fy = fy[..., :, None, None]
+    fx = fx[..., None, :, None]
+    r0 = gather(y0, x0) * (1.0 - fy) + gather(y1, x0) * fy
+    r1 = gather(y0, x1) * (1.0 - fy) + gather(y1, x1) * fy
+    return r0 * (1.0 - fx) + r1 * fx
+
+
+def roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
+                   out_h=7, out_w=7):
+    """Kernel K2 on CUDA tensors; same contract as `roi_align_plain`."""
+    if not (feats.is_cuda and boxes.is_cuda):
+        raise ValueError("roi_align_cuda takes CUDA tensors")
+    if feats.dtype != torch.float32 or feats.dim() != 4:
+        raise ValueError("roi_align_cuda: feats must be (B, Hf, Wf, C) f32")
+    if not feats.is_contiguous():
+        raise ValueError("roi_align_cuda: feats must be contiguous NHWC")
+    if feats.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("roi_align_cuda is forward-only; run it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    B, Hf, Wf, C = feats.shape
+    K = boxes.shape[1]
+    if boxes.shape != (B, K, 4):
+        raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
+    _check_extent(feat_h, feat_w, Hf, Wf)
+    dev = feats.device
+    yf, xf = _sample_coords(boxes, img_h, img_w, feat_h, feat_w,
+                            out_h, out_w)
+    yf, xf = yf.contiguous(), xf.contiguous()
+    img_idx = torch.arange(B, dtype=torch.int32, device=dev
+                           ).repeat_interleave(K)
+    fh = feat_h.to(torch.int32).repeat_interleave(K)
+    fw = feat_w.to(torch.int32).repeat_interleave(K)
+    out = torch.empty((B, K, out_h, out_w, C), dtype=torch.float32,
+                      device=dev)
+    lib = build.load()
+    rc = lib.dc_roi_align_fwd(
+        feats.data_ptr(), yf.data_ptr(), xf.data_ptr(), img_idx.data_ptr(),
+        fh.data_ptr(), fw.data_ptr(), B * K, Hf, Wf, C, out_h, out_w,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "roi_align")
+    build.count_launch("roi_align")
+    return out
+
+
+def roi_align(feats, boxes, img_h, img_w, feat_h, feat_w, out_h=7, out_w=7):
+    """RoI align over a batch: the kernel on CUDA, the plain version on CPU."""
+    if feats.is_cuda:
+        return roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
+                              out_h, out_w)
+    if feats.device.type != "cpu":
+        raise ValueError(f"roi_align: no implementation for {feats.device}")
+    return roi_align_plain(feats, boxes, img_h, img_w, feat_h, feat_w,
+                           out_h, out_w)

@@ -1,0 +1,154 @@
+"""HTTP serving endpoint for the port (twin of densecap_tpu/serve/server.py).
+
+  python -m densecap_tpu_torch.serve.server --checkpoint ck.npz --device cuda
+
+POST /api/infer   body: {"image": "<base64 jpeg>", "stream": id} or raw
+                  JPEG bytes (stream id in the X-Stream-Id header)
+GET  /            the browser webcam client (densecap_tpu/serve/static)
+
+Images are decoded with PIL. A failed warm-up is an error: the server
+does not start.
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import io
+import json
+import os
+import ssl
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+
+from ..config import DenseCapConfig
+from ..utils.checkpoint import load_params
+from .engine import InferenceEngine
+
+# the browser client is shared with the JAX package's server
+_STATIC_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "densecap_tpu", "serve", "static")
+
+
+def _decode_image(data):
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+
+
+def make_handler(engine):
+    """A request handler class serving `engine.process_array`."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code, body, ctype="application/json"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *a):  # quiet
+            pass
+
+        def do_GET(self):
+            path = "client.html" if self.path in ("/", "") else \
+                self.path.lstrip("/")
+            full = os.path.normpath(os.path.join(_STATIC_DIR, path))
+            inside = os.path.commonpath([full, _STATIC_DIR]) == _STATIC_DIR
+            if not inside or not os.path.isfile(full):
+                self._send(404, b'{"error": "not found"}')
+                return
+            ctype = ("text/html" if full.endswith(".html")
+                     else "application/javascript" if full.endswith(".js")
+                     else "text/plain")
+            with open(full, "rb") as f:
+                self._send(200, f.read(), ctype)
+
+        def do_POST(self):
+            if self.path != "/api/infer":
+                self._send(404, b'{"error": "not found"}')
+                return
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            stream_id = self.headers.get("X-Stream-Id")
+            try:
+                if self.headers.get("Content-Type", "").startswith(
+                        "application/json"):
+                    payload = json.loads(body)
+                    img_b64 = payload["image"]
+                    stream_id = payload.get("stream", stream_id)
+                    if "," in img_b64[:64]:  # data-URL prefix
+                        img_b64 = img_b64.split(",", 1)[1]
+                    data = base64.b64decode(img_b64)
+                else:
+                    data = body
+                rgb = _decode_image(data)
+            except Exception as e:  # noqa: BLE001 — a bad payload is a 400
+                self._send(400, json.dumps({"error": str(e)}).encode())
+                return
+            try:
+                result = engine.process_array(rgb, stream_id=stream_id)
+            except TimeoutError as e:
+                self._send(504, json.dumps({"error": str(e)}).encode())
+                return
+            except Exception as e:  # noqa: BLE001 — engine fault is a 500
+                self._send(500, json.dumps({"error": str(e)}).encode())
+                return
+            self._send(200, json.dumps(result).encode())
+
+    return Handler
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--image_size", type=int, default=480,
+                   help="the reference demo serves 480 px frames")
+    p.add_argument("--num_proposals", type=int, default=50)
+    p.add_argument("--pre_nms_topk", type=int, default=6000,
+                   help="NMS scans only the top-K scored anchors (-1 = all)")
+    p.add_argument("--max_boxes", type=int, default=50)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="micro-batch concurrent requests (throughput mode)")
+    p.add_argument("--certfile", default="",
+                   help="enable TLS (browser webcams need HTTPS off localhost)")
+    p.add_argument("--keyfile", default="")
+    args = p.parse_args(argv)
+
+    params, extra = load_params(args.checkpoint)
+    meta = json.loads(str(extra["meta"])) if "meta" in extra else {}
+    if "config" in meta:
+        cfg = DenseCapConfig.from_json(meta["config"])
+    else:
+        cfg = DenseCapConfig(vocab_size=int(meta.get("vocab_size", 10000)),
+                             seq_length=int(meta.get("seq_length", 15)))
+    cfg = cfg.replace(image_size=args.image_size,
+                      test_max_proposals=args.num_proposals,
+                      test_pre_nms_topk=args.pre_nms_topk)
+    engine = InferenceEngine(params, cfg, meta.get("idx_to_token", {}),
+                             device=args.device, max_boxes=args.max_boxes,
+                             batch_size=args.batch_size)
+    print("warming up...")
+    engine.warmup()
+
+    httpd = ThreadingHTTPServer((args.host, args.port), make_handler(engine))
+    if args.certfile:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(args.certfile, args.keyfile or None)
+        httpd.socket = ctx.wrap_socket(httpd.socket, server_side=True)
+    print(f"serving on {args.host}:{args.port}")
+    try:
+        httpd.serve_forever()
+    finally:
+        httpd.server_close()
+        engine.close()
+
+
+if __name__ == "__main__":
+    main()
