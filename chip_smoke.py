@@ -1,4 +1,5 @@
-"""Card-side check of the PyTorch port: kernels, full-width engine, HTTP.
+"""Card-side check of the PyTorch port: kernels, full-width engine, HTTP,
+full-width training.
 
     python3 chip_smoke.py
 
@@ -6,16 +7,29 @@ Needs one CUDA card and the CUDA toolkit (nvcc). Phases, each printing
 its result on its own line; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit;
-  2. build: the NMS and RoI-align kernels from densecap_tpu_torch/ops/cuda;
+  2. build: the kernels of densecap_tpu_torch/ops/cuda (one nvcc per
+     source, in parallel);
   3. K1 (NMS) against its plain PyTorch version at the serving shapes,
      picks required identical;
   4. K2 (RoI align) against its plain version, max abs error <= 1e-5;
-  5. the full-width engine (VGG-16, fc 4096, vocab 10 000, 720 px canvas,
+  5. K3 (fused conv+ReLU+mask+pool) at trunk1's conv1_2 and conv2_2
+     shapes in bf16: its max abs error against an f32 oracle no more
+     than 1.25x the plain version's; in f32 within rtol 1e-4 of plain;
+  6. K2b (RoI-align backward) at the training shape against plain
+     autograd: d feats within 1e-5 and d boxes within 1e-4 of the
+     reference gradient's largest entry;
+  7. the full-width engine (VGG-16, fc 4096, vocab 10 000, 720 px canvas,
      1000 proposals, bf16, random weights from seed 0): 32 concurrent
-     720x540 frames at batch 8, then frames at batch 1; both kernels
-     must launch on this path. A small f32 model on the card is held
-     against the same model on the CPU (plain ops) as the reference.
-     Then, when PIL can encode JPEG, the same engine serves HTTP POSTs.
+     720x540 frames at batch 8, then frames at batch 1; K1 and K2 must
+     launch on this path. A small f32 model on the card is held against
+     the same model on the CPU (plain ops) as the reference. Then, when
+     PIL can encode JPEG, the same engine serves HTTP POSTs;
+  8. training: one step of a small f32 model (K3 on, sampler pinned,
+     dropout off) on the card against the CPU; then the flagship train
+     step at full width (the engine's model, 384 RoIs per image, bf16,
+     B = 8, K3 on): 6 steps with the trunk frozen, the finetune flip,
+     2 more. Trunk1 must not move, trunk2 only after the flip; K2, K2b
+     and K3 must launch, K2b's feature scatter only after the flip.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -39,16 +53,25 @@ import torch
 
 from densecap_tpu_torch.config import DenseCapConfig
 from densecap_tpu_torch.models.vgg16 import feat_extent
+from densecap_tpu_torch.ops import conv_pool as cp
 from densecap_tpu_torch.ops import nms as nms_mod
 from densecap_tpu_torch.ops import roi_align as roi_mod
 from densecap_tpu_torch.ops.boxes import xcycwh_to_x1y1x2y2
 from densecap_tpu_torch.ops.cuda import build
+from densecap_tpu_torch.parallel.train_step import Trainer, batched_loss
 from densecap_tpu_torch.serve.engine import InferenceEngine
 from densecap_tpu_torch.serve.server import make_handler
-from densecap_tpu_torch.utils.checkpoint import init_params, to_torch
+from densecap_tpu_torch.utils.checkpoint import from_torch, init_params, to_torch
 
 B = 8
 ROI_TOL = 1e-5
+CONV_POOL_RATIO = 1.25   # K3 error vs f32 oracle, at most this x plain's
+CONV_POOL_F32_RTOL = 1e-4
+BWD_FEATS_TOL = 1e-5     # K2b, relative to the largest reference entry
+BWD_BOXES_TOL = 1e-4
+# the eight image sizes (h, w) of the K2 phase, on the 720 px canvas
+IMG_H = (720, 540, 720, 480, 700, 720, 360, 720)
+IMG_W = (540, 720, 720, 720, 500, 333, 720, 96)
 
 
 def cuda_ms(fn, runs=10, warmup=2):
@@ -153,10 +176,8 @@ def phase_roi(dev):
     rng = np.random.default_rng(2)
     feats = torch.from_numpy(
         rng.standard_normal((B, 45, 45, 512), dtype=np.float32)).to(dev)
-    img_h = torch.tensor([720, 540, 720, 480, 700, 720, 360, 720],
-                         dtype=torch.float32, device=dev)
-    img_w = torch.tensor([540, 720, 720, 720, 500, 333, 720, 96],
-                         dtype=torch.float32, device=dev)
+    img_h = torch.tensor(IMG_H, dtype=torch.float32, device=dev)
+    img_w = torch.tensor(IMG_W, dtype=torch.float32, device=dev)
     fh, fw = feat_extent(img_h, img_w)
     bx = random_boxes(rng, 1000)
     bx[..., 2:] *= 1.5  # some boxes reach past the image edge
@@ -173,6 +194,96 @@ def phase_roi(dev):
     if not err <= ROI_TOL:
         raise AssertionError(f"K2 max abs error {err} > {ROI_TOL}")
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+
+
+def phase_conv_pool(dev):
+    """K3 at trunk1's two fused stages, ragged extents."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst, first = 0.0, None
+    for name, C, S, div in (("conv1_2+pool1", 64, 720, 1),
+                            ("conv2_2+pool2", 128, 360, 2)):
+        eh = torch.floor(torch.tensor(IMG_H, device=dev) / div)
+        ew = torch.floor(torch.tensor(IMG_W, device=dev) / div)
+        x = torch.randn((B, C, S, S), generator=g, device=dev).abs()
+        x = (x * cp.extent_mask(S, S, eh, ew, x.dtype)).contiguous(
+            memory_format=torch.channels_last)
+        w = torch.randn((C, C, 3, 3), generator=g, device=dev) * (
+            2.0 / (9 * C)) ** 0.5
+        b = torch.randn((C,), generator=g, device=dev) * 0.1
+        with torch.no_grad():
+            xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+            oracle = cp.conv_relu_pool_plain(xb.float(), wb.float(),
+                                             bb.float(), eh, ew)
+            kb = cp.conv_relu_pool_cuda(xb, wb, bb, eh, ew).float()
+            pb = cp.conv_relu_pool_plain(xb, wb, bb, eh, ew).float()
+            k_err = float((kb - oracle).abs().max())
+            p_err = float((pb - oracle).abs().max())
+            kp_err = float((kb - pb).abs().max())
+            del oracle, kb, pb
+            kf = cp.conv_relu_pool_cuda(x, w, b, eh, ew)
+            pf = cp.conv_relu_pool_plain(x, w, b, eh, ew)
+            f32_ok = bool(torch.allclose(kf, pf, rtol=CONV_POOL_F32_RTOL,
+                                         atol=CONV_POOL_F32_RTOL))
+            f32_err = float((kf - pf).abs().max())
+            del kf, pf
+            k_ms = cuda_ms(lambda: cp.conv_relu_pool_cuda(xb, wb, bb, eh, ew))
+            p_ms = cuda_ms(lambda: cp.conv_relu_pool_plain(xb, wb, bb, eh, ew))
+        print(f"[K3 conv_pool] {name} ({B},{S},{S},{C}) bf16: max abs err vs "
+              f"f32 oracle kernel {k_err:.4e} plain {p_err:.4e} (ratio "
+              f"{k_err / p_err:.3f}, limit {CONV_POOL_RATIO}); f32 kernel vs "
+              f"plain max abs {f32_err:.3e} within rtol {CONV_POOL_F32_RTOL}="
+              f"{f32_ok}; bf16 kernel vs plain max abs {kp_err:.4e}; kernel "
+              f"{k_ms:.3f} ms plain {p_ms:.3f} ms")
+        if not (k_err <= CONV_POOL_RATIO * p_err and f32_ok):
+            raise AssertionError(f"K3 disagrees with plain at {name}")
+        worst = max(worst, kp_err)
+        if first is None:
+            first = (k_ms, p_ms)
+    return {"max_abs_err": worst, "ms": first[0], "plain_ms": first[1]}
+
+
+def phase_roi_bwd(dev):
+    """K2b at the training shape: 8 x 384 boxes on (8, 45, 45, 512)."""
+    rng = np.random.default_rng(6)
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 45, 45, 512), dtype=np.float32)).to(dev)
+    img_h = torch.tensor(IMG_H, dtype=torch.float32, device=dev)
+    img_w = torch.tensor(IMG_W, dtype=torch.float32, device=dev)
+    fh, fw = feat_extent(img_h, img_w)
+    bx = random_boxes(rng, 384)
+    bx[..., 2:] *= 1.5
+    boxes = torch.from_numpy(bx).to(dev)
+    gout = torch.from_numpy(
+        rng.standard_normal((B, 384, 7, 7, 512), dtype=np.float32)).to(dev)
+
+    def graph(fn, feats_grad):
+        f = feats.clone().requires_grad_(feats_grad)
+        b = boxes.clone().requires_grad_()
+        out = fn(f, b, img_h, img_w, fh, fw)
+        inputs = [f, b] if feats_grad else [b]
+        return lambda: torch.autograd.grad(out, inputs, gout,
+                                           retain_graph=True)
+
+    kf, kb = graph(roi_mod.roi_align_cuda, True)()
+    pf, pb = graph(roi_mod.roi_align_plain, True)()
+    f_abs = float((kf - pf).abs().max())
+    b_abs = float((kb - pb).abs().max())
+    f_err = f_abs / float(pf.abs().max())
+    b_err = b_abs / float(pb.abs().max())
+    del kf, pf
+    k_ms = cuda_ms(graph(roi_mod.roi_align_cuda, True))
+    p_ms = cuda_ms(graph(roi_mod.roi_align_plain, True))
+    kc_ms = cuda_ms(graph(roi_mod.roi_align_cuda, False))
+    pc_ms = cuda_ms(graph(roi_mod.roi_align_plain, False))
+    print(f"[K2b roi_align_bwd] 8x384 boxes on (8,45,45,512) f32: d feats "
+          f"err {f_err:.3e} (tol {BWD_FEATS_TOL}), d boxes err {b_err:.3e} "
+          f"(tol {BWD_BOXES_TOL}), relative to the largest plain entry; "
+          f"backward with d feats: kernel {k_ms:.3f} ms plain {p_ms:.3f} ms; "
+          f"d boxes only (frozen trunk): kernel {kc_ms:.3f} ms plain "
+          f"{pc_ms:.3f} ms")
+    if not (f_err <= BWD_FEATS_TOL and b_err <= BWD_BOXES_TOL):
+        raise AssertionError("K2b disagrees with plain autograd")
+    return {"max_abs_err": max(f_abs, b_abs), "ms": k_ms, "plain_ms": p_ms}
 
 
 def phase_reference(dev):
@@ -220,12 +331,8 @@ FLAGSHIP = DenseCapConfig(vocab_size=10000, image_size=720,
                           test_max_proposals=1000, test_pre_nms_topk=6000)
 
 
-def phase_engine(dev, cfg=FLAGSHIP, frame_hw=(540, 720)):
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0)
+def phase_engine(dev, params, cfg=FLAGSHIP, frame_hw=(540, 720)):
     vocab = {i: f"w{i}" for i in range(1, cfg.vocab_size + 1)}
-    print(f"[engine] full-width params from seed 0 in "
-          f"{time.perf_counter() - t0:.1f} s (compute {cfg.compute_dtype})")
     rng = np.random.default_rng(4)
     frames = [rng.integers(0, 256, (*frame_hw, 3), dtype=np.uint8)
               for _ in range(32)]
@@ -266,7 +373,7 @@ def phase_engine(dev, cfg=FLAGSHIP, frame_hw=(540, 720)):
         print(f"[engine] peak device memory {peak / 2**30:.2f} GiB; "
               f"kernel launches on this path {launches}; "
               f"boxes/frame {[len(r['boxes']) for r in results[:4]]}")
-        if not all(launches[k] > 0 for k in launches):
+        if not (launches["nms"] > 0 and launches["roi_align"] > 0):
             raise AssertionError(f"a kernel never launched: {launches}")
 
         with torch.inference_mode():
@@ -290,6 +397,156 @@ def phase_engine(dev, cfg=FLAGSHIP, frame_hw=(540, 720)):
     finally:
         eng8.close()
         eng1.close()
+    return launches
+
+
+TINY_TRAIN = DenseCapConfig(
+    vocab_size=20, seq_length=4, image_size=96,
+    anchors=((8, 8), (16, 16), (12, 24), (24, 12)), rnn_size=32,
+    rnn_encoding_size=32, fc_dim=64, rpn_num_filters=32,
+    sampler_batch_size=16, max_gt_boxes=6, drop_prob=0.0,
+    fuse_conv_pool=True, compute_dtype=torch.float32)
+
+
+def make_train_batch(rng, cfg, n, hw, max_boxes):
+    """n uint8 canvases with (h, w) frames at the top left, 1..max_boxes
+    gt boxes inside each frame and captions of 1..seq_length tokens."""
+    S, G, T, V = (cfg.image_size, cfg.max_gt_boxes, cfg.seq_length,
+                  cfg.vocab_size)
+    h, w = hw
+    images = np.zeros((n, S, S, 3), np.uint8)
+    images[:, :h, :w] = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    bw = rng.uniform(16, w / 2, (n, G))
+    bh = rng.uniform(16, h / 2, (n, G))
+    xc = rng.uniform(bw / 2 + 1, w - bw / 2)
+    yc = rng.uniform(bh / 2 + 1, h - bh / 2)
+    lengths = rng.integers(1, T + 1, (n, G))
+    labels = rng.integers(1, V + 1, (n, G, T))
+    labels[np.arange(T)[None, None] >= lengths[..., None]] = 0
+    return {
+        "image": torch.from_numpy(images),
+        "height": torch.full((n,), float(h)),
+        "width": torch.full((n,), float(w)),
+        "gt_boxes": torch.from_numpy(
+            np.stack([xc, yc, bw, bh], -1).astype(np.float32)),
+        "gt_labels": torch.from_numpy(labels),
+        "gt_valid": torch.from_numpy(
+            np.arange(G)[None] < rng.integers(1, max_boxes + 1, (n, 1))),
+    }
+
+
+def to_dev(batch, dev):
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def phase_train_reference(dev, lr=1e-3):
+    """One train step of a small f32 model (K3 on, sampler pinned by
+    ordinals, dropout off) on the card against the CPU's plain path."""
+    cfg = TINY_TRAIN
+    params = init_params(cfg, seed=3)
+    rng = np.random.default_rng(3)
+    batch = make_train_batch(rng, cfg, 2, (72, 96), 6)
+    batch["height"] = torch.tensor([72.0, 96.0])
+    batch["width"] = torch.tensor([96.0, 80.0])
+    dbg = {"pos": torch.from_numpy(rng.permutation(8)),
+           "neg": torch.from_numpy(rng.permutation(16))}
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        model = to_torch(params, cfg, d, train=True)
+        trainer = Trainer(model, learning_rate=lr)
+        losses = trainer.step(to_dev(batch, d), debug_sampler=to_dev(dbg, d))
+        runs.append(({k: float(v) for k, v in losses.items()},
+                     {n: (p.detach().cpu(), p.grad.cpu())
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+                     from_torch(model)))
+    (lg, pg, tg), (lc, pc, tc) = runs
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+    # Adam's first update is about -lr * sign(g): entries with |g| near
+    # eps may differ by up to 2 lr; where |g| is large they agree closely
+    worst_all = worst_big = 0.0
+    for n, (p_cpu, g_cpu) in pc.items():
+        diff = (pg[n][0] - p_cpu).abs()
+        big = g_cpu.abs() > 1e-3 * g_cpu.abs().max()
+        worst_all = max(worst_all, float(diff.max()))
+        worst_big = max(worst_big, float(diff[big].max()) if big.any() else 0)
+    same_trunk1 = all(np.array_equal(tg["trunk1"][k]["w"], tc["trunk1"][k]["w"])
+                      for k in tc["trunk1"])
+    print(f"[train reference] tiny f32 model, K3 on, one step card vs CPU: "
+          f"losses max rel err {loss_err:.2e} (tol 1e-4), total "
+          f"{lg['total_loss']:.6f} vs {lc['total_loss']:.6f}; updated params "
+          f"max diff {worst_all:.2e} (bound 2 lr = {2 * lr:.0e}), where |g| is "
+          f"large {worst_big:.2e} (bound {1e-3 * lr + 1e-6:.1e}); trunk1 "
+          f"unchanged on both={same_trunk1}")
+    if not (loss_err <= 1e-4 and worst_all <= 2 * lr + 1e-6
+            and worst_big <= 1e-3 * lr + 1e-6 and same_trunk1):
+        raise AssertionError("the card's train step disagrees with the CPU")
+
+
+def phase_train(dev, params, frozen_steps=6, finetune_steps=2):
+    """The flagship train step at full width, bf16, B = 8, K3 on."""
+    cfg = FLAGSHIP.replace(fuse_conv_pool=True)
+    rng = np.random.default_rng(7)
+    batches = [to_dev(make_train_batch(rng, cfg, B, (540, 720), 30), dev)
+               for _ in range(frozen_steps + finetune_steps)]
+    model = to_torch(params, cfg, dev, train=True)
+    trainer = Trainer(model, learning_rate=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def snapshot(prefix):
+        return {n: p.detach().clone() for n, p in model.named_parameters()
+                if n.startswith(prefix)}
+
+    trunk1, trunk2 = snapshot("trunk1."), snapshot("trunk2.")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    times, totals = [], []
+    for i, batch in enumerate(batches):
+        if i == frozen_steps:
+            frozen_launches = dict(build.launches)
+            trunk2_still = all(torch.equal(p, trunk2[n])
+                               for n, p in snapshot("trunk2.").items())
+            trainer.set_finetune(True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = trainer.step(batch, generator=gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        totals.append(float(losses["total_loss"]))
+        print(f"[train] step {i + 1} ({'finetune' if i >= frozen_steps else 'frozen'}): "
+              f"total_loss {totals[-1]:.4f} captioning "
+              f"{float(losses['captioning_loss']):.4f} num_pos "
+              f"{float(losses['stats/num_pos']):.1f} | {times[-1]:.1f} ms")
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    trunk1_same = all(torch.equal(p, trunk1[n])
+                      for n, p in snapshot("trunk1.").items())
+    trunk2_moved = all(not torch.equal(p, trunk2[n])
+                       for n, p in snapshot("trunk2.").items())
+    frozen_ms = statistics.median(times[1:frozen_steps])
+    finetune_ms = statistics.median(times[frozen_steps + 1:]
+                                    or times[frozen_steps:])
+    print(f"[train] flagship B={B} 720 px canvas, 540x720 frames, 384 RoIs "
+          f"per image, bf16, K3 on: ms/step median frozen trunk "
+          f"{frozen_ms:.1f} (steps 2-{frozen_steps}), after the flip "
+          f"{finetune_ms:.1f}; {B * 1000 / frozen_ms:.2f} images/s frozen; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    print(f"[train] kernel launches: frozen phase {frozen_launches}, "
+          f"whole run {launches}; trunk1 unchanged={trunk1_same}, trunk2 "
+          f"unchanged before the flip={trunk2_still}, moved after={trunk2_moved}")
+    if not all(np.isfinite(totals)):
+        raise AssertionError(f"non-finite training loss: {totals}")
+    if not (trunk1_same and trunk2_still and trunk2_moved):
+        raise AssertionError("the zones did not hold")
+    if not (frozen_launches["roi_align_bwd_feats"] == 0
+            and all(launches[k] > 0 for k in
+                    ("conv_pool", "roi_align", "roi_align_bwd",
+                     "roi_align_bwd_feats"))):
+        raise AssertionError(f"a kernel of the train path misbehaved: "
+                             f"{frozen_launches} -> {launches}")
     return launches
 
 
@@ -330,17 +587,34 @@ def main():
     phase_build()
     k1 = phase_nms(dev)
     k2 = phase_roi(dev)
+    k3 = phase_conv_pool(dev)
+    k2b = phase_roi_bwd(dev)
     phase_reference(dev)
-    launches = phase_engine(dev)
+    t0 = time.perf_counter()
+    params = init_params(FLAGSHIP, seed=0)
+    print(f"[engine] full-width params from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    serve = phase_engine(dev, params)
+    phase_train_reference(dev)
+    train = phase_train(dev, params)
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",
          "replaces": "densecap_tpu/ops/pallas/nms_kernel.py:146",
-         "launches": launches["nms"], **k1},
+         "launches": serve["nms"], **k1},
         {"name": "roi_align", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/roi_align.cu",
          "replaces": "densecap_tpu/ops/pallas/roi_align_kernel.py:141",
-         "launches": launches["roi_align"], **k2},
+         "launches": serve["roi_align"], **k2},
+        {"name": "roi_align_bwd", "route": "cuda",
+         "source": "densecap_tpu_torch/ops/cuda/roi_align.cu",
+         "replaces": "densecap_tpu/ops/pallas/roi_align_kernel.py:141",
+         "launches": train["roi_align_bwd"] + train["roi_align_bwd_feats"],
+         **k2b},
+        {"name": "conv_pool", "route": "cuda",
+         "source": "densecap_tpu_torch/ops/cuda/conv_pool.cu",
+         "replaces": "densecap_tpu/ops/pallas/conv_pool_kernel.py:273",
+         "launches": train["conv_pool"], **k3},
     ]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
-"""Inference configuration, free of JAX.
+"""Model and training configuration, free of JAX.
 
 Twin of `densecap_tpu.config.DenseCapConfig` restricted to the fields the
-inference path reads. `compute_dtype` is a torch dtype. `from_json` reads
-what the JAX `to_json` writes (the dtype as a name such as "bfloat16");
-fields that only training or TPU-specific options use are dropped.
+port's inference and training paths read, under the same names and
+defaults. `compute_dtype` is a torch dtype. `from_json` reads what the JAX
+`to_json` writes (the dtype as a name such as "bfloat16"); fields that
+only TPU-specific options use are dropped. What `to_json` writes, the
+JAX `from_json` reads.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class DenseCapConfig:
     output_height: int = 7
     output_width: int = 7
     fc_dim: int = 4096
+    drop_prob: float = 0.5
     field_centers: Tuple[float, float, float, float] = VGG16_FIELD_CENTERS
 
     rpn_filter_size: int = 3
@@ -47,8 +50,26 @@ class DenseCapConfig:
     anchor_scale: float = 1.0
     anchors: Tuple[Tuple[int, int], ...] = DENSECAP_ANCHORS
 
+    # sampler
+    sampler_batch_size: int = 256
+    sampler_high_thresh: float = 0.7
+    sampler_low_thresh: float = 0.3
+    train_remove_outbounds_boxes: bool = True
+
+    # loss weights and decays
+    mid_box_reg_weight: float = 0.05
+    mid_objectness_weight: float = 0.1
+    end_box_reg_weight: float = 0.1
+    end_objectness_weight: float = 0.1
+    captioning_weight: float = 1.0
+    box_reg_decay: float = 5e-5
+    weight_decay: float = 1e-6
+
     rnn_size: int = 512
     rnn_encoding_size: int = 512
+
+    # gt padding: ground-truth rows per image
+    max_gt_boxes: int = 128
 
     test_rpn_nms_thresh: float = 0.7
     test_final_nms_thresh: float = 0.3
@@ -57,8 +78,16 @@ class DenseCapConfig:
     # NMS runs over the top-k scored proposals only (-1 = all anchors)
     test_pre_nms_topk: int = 6000
 
+    # run trunk1's conv1_2+pool1 and conv2_2+pool2 through kernel K3
+    # (ops/conv_pool.py); off by default, as in the JAX package
+    fuse_conv_pool: bool = False
+
     # conv/matmul operand dtype; parameters and accumulations stay f32
     compute_dtype: torch.dtype = torch.bfloat16
+
+    # run trunk2 without gradient (the trainer sets it until the
+    # finetune flip); trunk1 never has one
+    static_freeze_cnn: bool = False
 
     @property
     def num_anchors(self) -> int:

@@ -1,10 +1,12 @@
-"""DenseCap inference: trunk -> localization -> recognition -> final NMS -> decode.
+"""DenseCap: trunk -> localization -> recognition -> (losses | final NMS
+-> decode).
 
-Twin of `densecap_tpu/models/densecap.py:forward_test` /
-`forward_test_batch`. The JAX package vmaps a single-image function; here
-the batch dimension is real and each image carries its own extent. All
-B*K rows decode together, which equals the vmapped per-image while loops
-because finished rows emit END with logprob 0.
+Twin of `densecap_tpu/models/densecap.py` (`features`, `forward_train`,
+`forward_test`, `forward_test_batch`). The JAX package vmaps a
+single-image function; here the batch dimension is real and each image
+carries its own extent. All B*K rows decode together, which equals the
+vmapped per-image while loops because finished rows emit END with
+logprob 0.
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..ops import losses as L
 from ..ops.boxes import clip_boxes, xcycwh_to_x1y1x2y2
 from ..ops.nms import nms
 from ..ops.transforms import apply_box_transform
-from .localization import gather_rows, localize_test
+from .localization import gather_rows, localize_test, localize_train
+from .lstm import get_target
 from .vgg16 import dot_f32, frozen
 
 
@@ -31,7 +35,7 @@ class TestOutput(NamedTuple):
 
 
 class DenseCap(nn.Module):
-    """The inference model. Build it with `utils.checkpoint.to_torch`.
+    """The model. Build it with `utils.checkpoint.to_torch`.
 
     Padded output slots hold index 0 of the final NMS, so their boxes,
     scores and captions are those of the top box, not zeros; `valid`
@@ -50,11 +54,74 @@ class DenseCap(nn.Module):
 
     def features(self, images, img_h, img_w):
         """(B, S, S, 3) f32 BGR mean-subtracted canvases -> (B, 512, S/16,
-        S/16) f32 channels_last, zero past each image's extent."""
+        S/16) f32 channels_last, zero past each image's extent.
+
+        Trunk1 (with K3 when `cfg.fuse_conv_pool`) always runs without
+        gradient: the reference never trains it. With
+        `cfg.static_freeze_cnn` trunk2 does too, which removes the whole
+        trunk from the backward.
+        """
         x = images.permute(0, 3, 1, 2)  # channels_last view of the NHWC input
-        x = self.trunk1(x, img_h, img_w)
-        return self.trunk2(x, torch.floor(img_h / 4.0),
-                           torch.floor(img_w / 4.0))
+        with torch.no_grad():
+            x = self.trunk1(x, img_h, img_w, fuse=self.cfg.fuse_conv_pool)
+        eh, ew = torch.floor(img_h / 4.0), torch.floor(img_w / 4.0)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.cfg.static_freeze_cnn):
+            return self.trunk2(x, eh, ew)
+
+    def _linear(self, x, w, b):
+        return dot_f32(x, w, self.cfg.compute_dtype) + b
+
+    def forward_train(self, images, img_h, img_w, gt_boxes, gt_labels,
+                      gt_valid, *, generator=None, debug_sampler=None):
+        """Per-image training losses, each (B,).
+
+        images: (B, S, S, 3) f32 normalized canvases; img_h / img_w (B,);
+        gt_boxes (B, G, 4) xcycwh; gt_labels (B, G, L) tokens (0-padded);
+        gt_valid (B, G) bool. `generator` draws the sample and dropout;
+        debug_sampler: dict(pos=(P,), neg=(M,)) ordinals replacing the
+        sample's draws (parity tests, with cfg.drop_prob = 0).
+        """
+        cfg = self.cfg
+        img_h, img_w = img_h.float(), img_w.float()
+        feats = self.features(images, img_h, img_w)
+        loc = localize_train(self.rpn, feats, img_h, img_w, gt_boxes,
+                             gt_labels, gt_valid, generator, cfg,
+                             cfg.anchor_tensor(images.device),
+                             debug_sampler=debug_sampler)
+        B, R = loc.roi_boxes.shape[:2]
+        P = loc.pos_valid.shape[1]
+        codes = self.recog(loc.roi_feats.flatten(0, 1),
+                           drop_prob=cfg.drop_prob, generator=generator)
+        roi_valid = torch.cat([loc.pos_valid, loc.neg_valid], 1)
+
+        # final objectness: valid positive slots labeled 1, the rest 0
+        obj_scores = self._linear(codes, self.obj_w, self.obj_b)
+        obj_labels = torch.cat([loc.pos_valid.long(),
+                                torch.zeros_like(loc.neg_valid.long())], 1)
+        end_obj = cfg.end_objectness_weight * L.logistic(
+            obj_scores.reshape(B, R, -1), obj_labels, roi_valid)
+
+        pos_codes = codes.reshape(B, R, -1)[:, :P].flatten(0, 1)
+        final_trans = self._linear(pos_codes, self.box_w, self.box_b)
+        end_box = L.box_regression(
+            loc.pos_boxes, final_trans.reshape(B, P, 4),
+            loc.pos_target_boxes, loc.pos_valid, weight=cfg.end_box_reg_weight)
+
+        labels = loc.pos_target_labels
+        lm_scores = self.lm.forward_train(pos_codes, labels.flatten(0, 1))
+        cap = cfg.captioning_weight * L.temporal_cross_entropy(
+            lm_scores.reshape(B, P, *lm_scores.shape[1:]),
+            get_target(labels, cfg.vocab_size), loc.pos_valid)
+
+        losses = dict(loc.losses)
+        losses["end_objectness_loss"] = end_obj
+        losses["end_box_reg_loss"] = end_box
+        losses["captioning_loss"] = cap
+        losses["total_loss"] = (
+            losses["mid_objectness_loss"] + losses["mid_box_reg_loss"]
+            + losses["box_decay_loss"] + end_obj + end_box + cap)
+        return losses
 
     @torch.inference_mode()
     def forward_test_batch(self, images, img_h, img_w, *,
@@ -79,8 +146,8 @@ class DenseCap(nn.Module):
         B, K = loc.roi_boxes.shape[:2]
 
         codes = self.recog(loc.roi_feats.flatten(0, 1))
-        scores = (dot_f32(codes, self.obj_w) + self.obj_b)[:, 0].reshape(B, K)
-        trans = (dot_f32(codes, self.box_w) + self.box_b).reshape(B, K, 4)
+        scores = self._linear(codes, self.obj_w, self.obj_b)[:, 0].reshape(B, K)
+        trans = self._linear(codes, self.box_w, self.box_b).reshape(B, K, 4)
         boxes = apply_box_transform(loc.roi_boxes, trans)
         if cfg.clip_final_boxes:
             boxes, _ = clip_boxes(boxes, img_w[:, None], img_h[:, None])

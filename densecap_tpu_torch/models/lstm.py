@@ -1,7 +1,9 @@
-"""Image-conditioned LSTM language model, greedy decode only.
+"""Image-conditioned LSTM language model: teacher-forced training and
+greedy decode.
 
 Twin of `densecap_tpu/models/lstm.py` (`_lstm_step`, `_embed`,
-`_encode_image`, `_project`, `_greedy_decode`). Tokens: words 1..V,
+`_encode_image`, `_project`, `forward_train`, `get_target`,
+`_greedy_decode`). Tokens: words 1..V,
 START = END = V+1; the embedding has V+2 rows (token t -> row t-1) and
 the projection scores V+1 classes (class j <-> token j+1). The cell is
 written out by hand with torch-rnn's gate order (i, f, o, g), so
@@ -17,10 +19,13 @@ from .vgg16 import dot_f32, frozen
 
 
 class LanguageModel(nn.Module):
-    """Matrices (in, out) in the compute dtype; biases and the embedding f32."""
+    """Matrices (in, out), cast to the compute dtype at use; biases and
+    the embedding f32."""
 
-    def __init__(self, enc_w, enc_b, embed, Wx, Wh, b, proj_w, proj_b):
+    def __init__(self, enc_w, enc_b, embed, Wx, Wh, b, proj_w, proj_b,
+                 compute_dtype):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.enc_w, self.enc_b = frozen(enc_w), frozen(enc_b)
         self.embed_w = frozen(embed)
         self.Wx, self.Wh, self.b = frozen(Wx), frozen(Wh), frozen(b)
@@ -31,7 +36,8 @@ class LanguageModel(nn.Module):
         return self.embed_w.shape[0] - 2
 
     def lstm_step(self, h, c, x):
-        gates = dot_f32(x, self.Wx) + dot_f32(h, self.Wh) + self.b
+        cd = self.compute_dtype
+        gates = dot_f32(x, self.Wx, cd) + dot_f32(h, self.Wh, cd) + self.b
         i, f, o, g = gates.chunk(4, dim=-1)
         c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h2 = torch.sigmoid(o) * torch.tanh(c2)
@@ -42,10 +48,33 @@ class LanguageModel(nn.Module):
         return self.embed_w[idx]
 
     def encode_image(self, vectors):
-        return torch.relu(dot_f32(vectors, self.enc_w) + self.enc_b)
+        return torch.relu(dot_f32(vectors, self.enc_w, self.compute_dtype)
+                          + self.enc_b)
 
     def project(self, h):
-        return dot_f32(h, self.proj_w) + self.proj_b
+        return dot_f32(h, self.proj_w, self.compute_dtype) + self.proj_b
+
+    def forward_train(self, vectors, gt_seq):
+        """Teacher forcing over T + 2 steps: (N, D) RoI codes and (N, T)
+        tokens in [0, V] (0 = padding) -> (N, T + 2, V + 1) scores.
+
+        Step 0 feeds the encoded image, step 1 START, steps 2..T+1 the gt
+        tokens with 0 replaced by NULL (V + 2).
+        """
+        N, T = gt_seq.shape
+        V = self.vocab_size
+        seq = torch.cat([gt_seq.new_full((N, 1), V + 1), gt_seq], 1).long()
+        seq = torch.where(seq == 0, V + 2, seq)
+        xs = torch.cat([self.encode_image(vectors)[:, None],
+                        self.embed(seq)], 1)
+        h = c = torch.zeros((N, self.Wh.shape[0]), dtype=torch.float32,
+                            device=vectors.device)
+        hs = []
+        for t in range(T + 2):
+            h, c = self.lstm_step(h, c, xs[:, t])
+            hs.append(h)
+        hs = torch.stack(hs, 1)
+        return self.project(hs.flatten(0, 1)).reshape(N, T + 2, -1)
 
     def greedy_decode(self, vectors, seq_length):
         """(P, D) RoI codes -> tokens (P, T) int32 and logprobs (P, T) f32.
@@ -78,3 +107,15 @@ class LanguageModel(nn.Module):
             lps[:, t] = torch.where(done, 0.0, lp)
             done = done | (tok == END)
         return seq, lps
+
+
+def get_target(gt_seq, vocab_size):
+    """Cross-entropy targets (..., T + 2) for (..., T) tokens: column 0
+    is 0 (the image step, masked), columns 1..T copy the tokens, and the
+    first 0 in columns 1..T+1 becomes END (V + 1)."""
+    zero = torch.zeros_like(gt_seq[..., :1])
+    y = torch.cat([gt_seq, zero], -1)
+    first_zero = (y == 0).to(torch.int32).argmax(-1, keepdim=True)
+    y = y.scatter(-1, first_zero, torch.full_like(first_zero, vocab_size + 1,
+                                                  dtype=y.dtype))
+    return torch.cat([zero, y], -1)

@@ -2,8 +2,14 @@
 
 The trunk runs NCHW tensors in `torch.channels_last` memory, so its
 output permuted to NHWC is a free contiguous view for RoI align. Convs go
-to cuDNN through `F.conv2d`. Weights are held in the compute dtype (the
-JAX package casts its f32 parameters at every call, to the same values).
+to cuDNN through `F.conv2d`; with `fuse=True` each conv followed by a
+pool goes through kernel K3 (`ops/conv_pool.py`) instead.
+
+Every module casts its weights to the compute dtype at use, as the JAX
+package does. An inference model (`utils.checkpoint.to_torch`) stores
+them in the compute dtype once, so the casts are no-ops; a training model
+(`to_torch(..., train=True)`) stores f32 masters, and the gradients reach
+them as f32.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv_pool import conv_relu_pool, extent_mask
 
 # (name, out_channels) per conv; 'M' = 2x2/2 max pool.
 TRUNK1_CFG = [("conv1_1", 64), ("conv1_2", 64), "M",
@@ -24,86 +32,121 @@ def frozen(t):
     return nn.Parameter(t, requires_grad=False)
 
 
-def dot_f32(x, w):
-    """2-D `x @ w` with operands in `w`'s dtype and an f32 result.
+class _DotF32(torch.autograd.Function):
+    """bf16 GEMMs with f32 outputs, forward and backward, on the card."""
+
+    @staticmethod
+    def forward(ctx, x, w, cd):
+        xc, wc = x.to(cd), w.to(cd)
+        ctx.save_for_backward(xc, wc)
+        return torch.mm(xc, wc, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        gc = g.to(xc.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(gc, wc.t(), out_dtype=torch.float32)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(xc.t(), gc, out_dtype=torch.float32)
+        return gx, gw, None
+
+
+def dot_f32(x, w, cd):
+    """2-D `x @ w` with operands in the compute dtype `cd` and an f32 result.
 
     The twin of `jnp.dot(x.astype(cd), w.astype(cd),
     preferred_element_type=float32)`: bf16 operands, f32 accumulation,
-    f32 output. On the CPU the bf16 operands are widened to f32, which is
-    exact, so the products and the f32 sum are the same.
+    f32 output. On the card a bf16 product is `_DotF32`, whose backward
+    is bf16 GEMMs with f32 outputs as well, so an f32 master weight gets
+    an f32 gradient. On the CPU the bf16 operands are widened to f32,
+    which is exact, so the products and the f32 sum are the same.
     """
-    x = x.to(w.dtype)
-    if w.dtype == torch.float32:
-        return x @ w
+    if cd == torch.float32:
+        return x.float() @ w.float()
     if x.is_cuda:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return x.float() @ w.float()
-
-
-def _extent_mask(H, W, eh, ew, dtype):
-    """(B, 1, H, W) mask: 1 inside each image's (eh, ew) extent, else 0."""
-    dev = eh.device
-    rows = torch.arange(H, dtype=torch.float32, device=dev)[None] < eh[:, None]
-    cols = torch.arange(W, dtype=torch.float32, device=dev)[None] < ew[:, None]
-    return (rows[:, None, :, None] & cols[:, None, None, :]).to(dtype)
+        return _DotF32.apply(x, w, cd)
+    return x.to(cd).float() @ w.to(cd).float()
 
 
 class Trunk(nn.Module):
     """A stack of 3x3 SAME conv + ReLU layers and 2x2/2 max pools.
 
-    `convs` maps each conv name of `cfg` to (weight OIHW, bias), both in
-    the compute dtype.
+    `convs` maps each conv name of `cfg` to (weight OIHW, bias).
     """
 
-    def __init__(self, cfg, convs):
+    def __init__(self, cfg, convs, compute_dtype):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
         self.weights = nn.ParameterDict(
             {name: frozen(w) for name, (w, _) in convs.items()})
         self.biases = nn.ParameterDict(
             {name: frozen(b) for name, (_, b) in convs.items()})
 
-    def forward(self, x, eh, ew):
+    def forward(self, x, eh, ew, fuse=False):
         """x: (B, C, H, W) channels_last; eh / ew: (B,) f32 true extents.
 
         Activations past each image's extent are zeroed after every conv,
         so each conv's SAME padding reads exactly the zeros a run on the
         cropped image would read; at each pool the extent floor-halves and
         the map is masked again. Activations stay in the compute dtype;
-        the output is upcast to f32 once, at the end.
+        the output is upcast to f32 once, at the end. With `fuse`, each
+        conv followed by a pool is one call of `conv_relu_pool` (K3 on the
+        card), which computes the same conv -> ReLU -> mask -> pool ->
+        mask.
         """
-        for item in self.cfg:
+        cd = self.compute_dtype
+        x = x.to(cd)
+        i = 0
+        while i < len(self.cfg):
+            item = self.cfg[i]
             if item == "M":
                 x = F.max_pool2d(x, 2, 2)
                 eh, ew = torch.floor(eh / 2.0), torch.floor(ew / 2.0)
-            else:
-                name = item[0]
-                w = self.weights[name]
-                x = F.conv2d(x.to(w.dtype), w, padding=1)
-                # bias added in the compute dtype, as the JAX trunk does
-                x = torch.relu(x + self.biases[name].view(1, -1, 1, 1))
-            x = x * _extent_mask(x.shape[2], x.shape[3], eh, ew, x.dtype)
+                x = x * extent_mask(x.shape[2], x.shape[3], eh, ew, x.dtype)
+                i += 1
+                continue
+            name = item[0]
+            w = self.weights[name].to(cd)
+            b = self.biases[name].to(cd)
+            if fuse and self.cfg[i + 1:i + 2] == ["M"]:
+                x = conv_relu_pool(x, w, b, eh, ew)
+                eh, ew = torch.floor(eh / 2.0), torch.floor(ew / 2.0)
+                i += 2
+                continue
+            x = F.conv2d(x, w, padding=1)
+            # bias added in the compute dtype, as the JAX trunk does
+            x = torch.relu(x + b.view(1, -1, 1, 1))
+            x = x * extent_mask(x.shape[2], x.shape[3], eh, ew, x.dtype)
+            i += 1
         return x.float()
 
 
 class Recog(nn.Module):
-    """fc6 -> ReLU -> fc7 -> ReLU on flattened (7, 7, C) RoI features.
+    """fc6 -> ReLU -> dropout -> fc7 -> ReLU -> dropout on flattened
+    (7, 7, C) RoI features. Weights (in, out), biases f32."""
 
-    Inference only: dropout is the identity. Weights (in, out) in the
-    compute dtype, biases f32.
-    """
-
-    def __init__(self, w6, b6, w7, b7):
+    def __init__(self, w6, b6, w7, b7, compute_dtype):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.w6, self.b6 = frozen(w6), frozen(b6)
         self.w7, self.b7 = frozen(w7), frozen(b7)
 
-    def forward(self, roi_feats):
-        """(N, 7, 7, C) -> (N, fc_dim) f32."""
-        cd = self.w6.dtype
+    def forward(self, roi_feats, drop_prob=0.0, generator=None):
+        """(N, 7, 7, C) -> (N, fc_dim) f32. drop_prob > 0 applies inverted
+        dropout (keep with 1 - drop_prob, scale by 1 / (1 - drop_prob))
+        after each ReLU, drawn from `generator`."""
+        cd = self.compute_dtype
         x = roi_feats.reshape(roi_feats.shape[0], -1).to(cd)
-        x = torch.relu(dot_f32(x, self.w6) + self.b6).to(cd)
-        x = torch.relu(dot_f32(x, self.w7) + self.b7).to(cd)
+        for w, b in ((self.w6, self.b6), (self.w7, self.b7)):
+            x = torch.relu(dot_f32(x, w, cd) + b)
+            if drop_prob > 0:
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=x.device) < 1.0 - drop_prob
+                x = torch.where(keep, x / (1.0 - drop_prob), 0.0)
+            x = x.to(cd)
         return x.float()
 
 

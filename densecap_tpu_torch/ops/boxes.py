@@ -23,6 +23,27 @@ def x1y1x2y2_to_xcycwh(boxes):
                        dim=-1)
 
 
+def iou_cwh(boxes1, boxes2):
+    """Pairwise (..., B1, 4) x (..., B2, 4) xcycwh -> (..., B1, B2).
+
+    The continuous convention of the sampler: corners at xc +/- w/2,
+    area w * h, intersection width clamped at 0 with no +1.
+    """
+    def corners(b):
+        xc, yc, w, h = b.unbind(-1)
+        return xc - w / 2.0, yc - h / 2.0, xc + w / 2.0, yc + h / 2.0
+
+    area1 = boxes1[..., 2] * boxes1[..., 3]
+    area2 = boxes2[..., 2] * boxes2[..., 3]
+    ax0, ay0, ax1, ay1 = (c[..., :, None] for c in corners(boxes1))
+    bx0, by0, bx1, by1 = (c[..., None, :] for c in corners(boxes2))
+    iw = torch.clamp_min(torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0), 0.0)
+    ih = torch.clamp_min(torch.minimum(ay1, by1) - torch.maximum(ay0, by0), 0.0)
+    inter = iw * ih
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union
+
+
 def iou_pascal(boxes1, boxes2):
     """Pairwise (..., B1, 4) x (..., B2, 4) x1y1x2y2 -> (..., B1, B2).
 

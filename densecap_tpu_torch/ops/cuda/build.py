@@ -21,21 +21,24 @@ import time
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "nms.cu", _HERE / "roi_align.cu")
+SOURCES = (_HERE / "nms.cu", _HERE / "roi_align.cu", _HERE / "conv_pool.cu")
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
 
 # -fmad=false: no FMA contraction, so the NMS IoU rounds exactly as the
-# plain PyTorch version does. Never add --use_fast_math.
+# plain PyTorch version does (a kernel that wants an FMA calls fmaf).
+# Never add --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None
 
 # Launch counts per kernel. A wrapper adds one where it launches its
-# kernel and nowhere else.
-launches = {"nms": 0, "roi_align": 0}
+# kernel and nowhere else. K2b is two launches: the coordinate gradient
+# (roi_align_bwd) and the feature scatter (roi_align_bwd_feats).
+launches = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
+            "roi_align_bwd_feats": 0, "conv_pool": 0}
 
 
 def reset_launches():
@@ -71,17 +74,28 @@ def library_path():
     return BUILD_DIR / f"libdc_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+
 def _compile(so):
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in SOURCES]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+              for src, obj in zip(SOURCES, objs)])
+        tmp = os.path.join(tmpdir, so.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
 
 
 def load():
@@ -103,6 +117,16 @@ def load():
         lib.dc_roi_align_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          ci, ci, ci, vp, vp]
         lib.dc_roi_align_fwd.restype = ci
+        lib.dc_roi_align_bwd_feats.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                               ci, ci, ci, ci, vp, vp]
+        lib.dc_roi_align_bwd_feats.restype = ci
+        lib.dc_roi_align_bwd_coords.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                ci, ci, ci, ci, ci, ci, vp,
+                                                vp, vp]
+        lib.dc_roi_align_bwd_coords.restype = ci
+        lib.dc_conv_relu_pool.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                          vp, vp]
+        lib.dc_conv_relu_pool.restype = ci
         _lib = lib
         return lib
 

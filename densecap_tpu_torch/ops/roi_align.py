@@ -1,12 +1,16 @@
-"""Bilinear RoI align, forward, batched over images.
+"""Bilinear RoI align, batched over images, differentiable in the
+features and the boxes.
 
 Twin of `densecap_tpu/ops/roi_align.py:roi_align` (gather formulation):
 
-  * `roi_align_plain`: PyTorch gathers; the CPU path and the reference
-    the CUDA kernel is held against.
-  * `roi_align_cuda`: kernel K2 (`cuda/roi_align.cu`).
+  * `roi_align_plain`: PyTorch gathers under autograd; the CPU path and
+    the reference the CUDA kernels are held against.
+  * `roi_align_cuda`: kernel K2 forward and K2b backward
+    (`cuda/roi_align.cu`) as one autograd Function over the sample
+    positions. `_sample_coords` stays plain torch outside it, so autograd
+    carries the position gradient through the clamp into the boxes.
   * `roi_align`: a CPU tensor takes the plain version, a CUDA tensor the
-    kernel.
+    kernels.
 
 Inputs: `feats` (B, Hf, Wf, C) channels-last f32 (a padded canvas);
 `boxes` (B, K, 4) xcycwh in 1-indexed image coordinates; `img_h`/`img_w`
@@ -40,8 +44,11 @@ def _sample_coords(boxes, img_h, img_w, feat_h, feat_w, out_h, out_w):
     fw = feat_w.float()[:, None, None]
     yf = (y_norm + 1.0) * (fh - 1.0) / 2.0
     xf = (x_norm + 1.0) * (fw - 1.0) / 2.0
-    yf = torch.minimum(torch.clamp_min(yf, 0.0), fh - 1.0)
-    xf = torch.minimum(torch.clamp_min(xf, 0.0), fw - 1.0)
+    # maximum / minimum against tensors, not clamp_min: at a tie they
+    # split the gradient 0.5 / 0.5, as jnp.clip does
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    yf = torch.minimum(torch.maximum(yf, zero), fh - 1.0)
+    xf = torch.minimum(torch.maximum(xf, zero), fw - 1.0)
     return yf, xf
 
 
@@ -88,18 +95,76 @@ def roi_align_plain(feats, boxes, img_h, img_w, feat_h, feat_w,
     return r0 * (1.0 - fx) + r1 * fx
 
 
+class _RoiAlignFn(torch.autograd.Function):
+    """K2 forward, K2b backward, over precomputed sample positions."""
+
+    @staticmethod
+    def forward(ctx, feats, yf, xf, img_idx, fh, fw):
+        B, Hf, Wf, C = feats.shape
+        R, out_h = yf.shape
+        out_w = xf.shape[1]
+        out = torch.empty((R, out_h, out_w, C), dtype=torch.float32,
+                          device=feats.device)
+        rc = build.load().dc_roi_align_fwd(
+            feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
+            img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C,
+            out_h, out_w, out.data_ptr(), _stream(feats))
+        build.check(rc, "roi_align")
+        build.count_launch("roi_align")
+        ctx.save_for_backward(feats, yf, xf, img_idx, fh, fw)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, yf, xf, img_idx, fh, fw = ctx.saved_tensors
+        g = g.contiguous()
+        B, Hf, Wf, C = feats.shape
+        R, out_h = yf.shape
+        out_w = xf.shape[1]
+        lib = build.load()
+        d_feats = d_yf = d_xf = None
+        if ctx.needs_input_grad[0]:  # never while the trunk is frozen
+            d_feats = torch.zeros_like(feats)
+            rc = lib.dc_roi_align_bwd_feats(
+                g.data_ptr(), yf.data_ptr(), xf.data_ptr(),
+                img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf,
+                C, out_h, out_w, d_feats.data_ptr(), _stream(feats))
+            build.check(rc, "roi_align_bwd_feats")
+            build.count_launch("roi_align_bwd_feats")
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            d_yf = torch.empty_like(yf)
+            d_xf = torch.empty_like(xf)
+            rc = lib.dc_roi_align_bwd_coords(
+                g.data_ptr(), feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
+                img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf,
+                C, out_h, out_w, d_yf.data_ptr(), d_xf.data_ptr(),
+                _stream(feats))
+            build.check(rc, "roi_align_bwd")
+            build.count_launch("roi_align_bwd")
+        return d_feats, d_yf, d_xf, None, None, None
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the coordinate backward keeps one partial sum per grid row and column
+# in registers (roi_align.cu kMaxOut)
+MAX_OUT = 16
+
+
 def roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
                    out_h=7, out_w=7):
-    """Kernel K2 on CUDA tensors; same contract as `roi_align_plain`."""
+    """Kernels K2 / K2b on CUDA tensors; same contract as
+    `roi_align_plain`, gradients included."""
     if not (feats.is_cuda and boxes.is_cuda):
         raise ValueError("roi_align_cuda takes CUDA tensors")
     if feats.dtype != torch.float32 or feats.dim() != 4:
         raise ValueError("roi_align_cuda: feats must be (B, Hf, Wf, C) f32")
     if not feats.is_contiguous():
         raise ValueError("roi_align_cuda: feats must be contiguous NHWC")
-    if feats.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("roi_align_cuda is forward-only; run it under "
-                           "torch.no_grad() or torch.inference_mode()")
+    if max(out_h, out_w) > MAX_OUT:
+        raise ValueError(f"roi_align_cuda: out_h, out_w must be <= {MAX_OUT}")
     B, Hf, Wf, C = feats.shape
     K = boxes.shape[1]
     if boxes.shape != (B, K, 4):
@@ -108,21 +173,14 @@ def roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
     dev = feats.device
     yf, xf = _sample_coords(boxes, img_h, img_w, feat_h, feat_w,
                             out_h, out_w)
-    yf, xf = yf.contiguous(), xf.contiguous()
     img_idx = torch.arange(B, dtype=torch.int32, device=dev
                            ).repeat_interleave(K)
     fh = feat_h.to(torch.int32).repeat_interleave(K)
     fw = feat_w.to(torch.int32).repeat_interleave(K)
-    out = torch.empty((B, K, out_h, out_w, C), dtype=torch.float32,
-                      device=dev)
-    lib = build.load()
-    rc = lib.dc_roi_align_fwd(
-        feats.data_ptr(), yf.data_ptr(), xf.data_ptr(), img_idx.data_ptr(),
-        fh.data_ptr(), fw.data_ptr(), B * K, Hf, Wf, C, out_h, out_w,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "roi_align")
-    build.count_launch("roi_align")
-    return out
+    out = _RoiAlignFn.apply(feats, yf.reshape(B * K, out_h).contiguous(),
+                            xf.reshape(B * K, out_w).contiguous(), img_idx,
+                            fh, fw)
+    return out.reshape(B, K, out_h, out_w, C)
 
 
 def roi_align(feats, boxes, img_h, img_w, feat_h, feat_w, out_h=7, out_w=7):

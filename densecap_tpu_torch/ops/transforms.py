@@ -6,6 +6,9 @@ import torch
 
 # exp(20) ~ 5e8: far beyond any real box ratio; guards exp() overflow
 MAX_LOG_SCALE = 20.0
+# floor on box sizes in invert_box_transform: zero-size padded rows give
+# large but finite transforms (masked by the losses' |t| > 10 rule)
+MIN_BOX_SIZE = 1e-8
 
 
 def apply_box_transform(boxes, trans):
@@ -20,6 +23,19 @@ def apply_box_transform(boxes, trans):
     th = torch.clamp(th, -MAX_LOG_SCALE, MAX_LOG_SCALE)
     return torch.stack([tx * wa + xa, ty * ha + ya,
                         wa * torch.exp(tw), ha * torch.exp(th)], dim=-1)
+
+
+def invert_box_transform(anchor_boxes, target_boxes):
+    """The transform taking xcycwh anchors to targets:
+    tx = (xt - xa) / wa, tw = log(wt / wa), sizes floored at MIN_BOX_SIZE."""
+    xa, ya, wa, ha = anchor_boxes.unbind(-1)
+    xt, yt, wt, ht = target_boxes.unbind(-1)
+    wa = torch.clamp_min(wa, MIN_BOX_SIZE)
+    ha = torch.clamp_min(ha, MIN_BOX_SIZE)
+    wt = torch.clamp_min(wt, MIN_BOX_SIZE)
+    ht = torch.clamp_min(ht, MIN_BOX_SIZE)
+    return torch.stack([(xt - xa) / wa, (yt - ya) / ha,
+                        torch.log(wt / wa), torch.log(ht / ha)], dim=-1)
 
 
 def make_anchors(feat_h, feat_w, anchors, field_centers):

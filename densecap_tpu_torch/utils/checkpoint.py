@@ -5,14 +5,24 @@
   * `init_params(cfg, seed)`: a numpy tree with the names, shapes and
     init laws of `densecap_tpu.models.densecap.init_params`, from a
     seeded `numpy.random.Generator` (not JAX's random values).
-  * `to_torch(params, cfg, device)`: builds `DenseCap` from such a tree,
-    whether an `.npz` or JAX's `init_params` (via `np.asarray`) made it.
+  * `to_torch(params, cfg, device, train=False)`: builds `DenseCap` from
+    such a tree, whether an `.npz` or JAX's `init_params` (via
+    `np.asarray`) made it. For inference every weight is stored in the
+    compute dtype once; with `train=True` every parameter is an f32
+    master that the modules cast at use, and all but trunk1's take
+    gradients.
+  * `from_torch(model)`: the reverse, a numpy tree with the JAX package's
+    names and layouts, and `save_params(path, tree, extra)`, which writes
+    it as the `.npz` that the JAX `load_params` and `load_params` here
+    read.
 
 Layouts: JAX conv kernels are HWIO and become OIHW; linear weights stay
 (in, out); the LSTM keeps torch-rnn's (i, f, o, g) gate order.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -32,6 +42,26 @@ def _unflatten(flat):
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def save_params(path, params, extra=None):
+    """Write a numpy parameter tree as one `.npz` with `/`-joined keys and
+    `__extra__/<name>` entries (the JAX `save_params` layout)."""
+    flat = _flatten(params)
+    for k, v in (extra or {}).items():
+        flat[f"__extra__/{k}"] = np.asarray(v)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
 
 
 def load_params(path):
@@ -106,25 +136,28 @@ def init_params(cfg, seed=0):
     }
 
 
-def to_torch(params, cfg, device):
-    """Numpy (or array-like) parameter tree -> `DenseCap` on `device`."""
+def to_torch(params, cfg, device, train=False):
+    """Numpy (or array-like) parameter tree -> `DenseCap` on `device`:
+    an inference model in eval mode, or with `train=True` a training
+    model of f32 masters in train mode."""
     cd = cfg.compute_dtype
+    wd = torch.float32 if train else cd  # storage dtype of the weights
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)
 
     def conv(p, bias_dtype):
-        w = t(np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)), cd)
+        w = t(np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)), wd)
         return (w.contiguous(memory_format=torch.channels_last),
                 t(p["b"], bias_dtype))
 
     def linear(p):
-        return t(p["w"], cd), t(p["b"])
+        return t(p["w"], wd), t(p["b"])
 
     def trunk(spec, tree):
-        return Trunk(spec, {item[0]: conv(tree[item[0]], cd)
-                            for item in spec if item != "M"})
+        return Trunk(spec, {item[0]: conv(tree[item[0]], wd)
+                            for item in spec if item != "M"}, cd)
 
     rp, lm = params["rpn"], params["lm"]
     model = DenseCap(
@@ -132,13 +165,49 @@ def to_torch(params, cfg, device):
         trunk(TRUNK1_CFG, params["trunk1"]),
         trunk(TRUNK2_CFG, params["trunk2"]),
         RPN(conv(rp["conv"], torch.float32), conv(rp["box"], torch.float32),
-            conv(rp["score"], torch.float32)),
+            conv(rp["score"], torch.float32), cd),
         Recog(*linear(params["recog"]["fc6"]),
-              *linear(params["recog"]["fc7"])),
+              *linear(params["recog"]["fc7"]), cd),
         linear(params["objectness"]),
         linear(params["box_reg"]),
         LanguageModel(*linear(lm["img_enc"]), t(lm["embed"]),
-                      t(lm["lstm"]["Wx"], cd), t(lm["lstm"]["Wh"], cd),
-                      t(lm["lstm"]["b"]), *linear(lm["proj"])),
+                      t(lm["lstm"]["Wx"], wd), t(lm["lstm"]["Wh"], wd),
+                      t(lm["lstm"]["b"]), *linear(lm["proj"]), cd),
     )
-    return model.eval()
+    if not train:
+        return model.eval()
+    for name, p in model.named_parameters():
+        p.requires_grad_(not name.startswith("trunk1."))
+    return model.train()
+
+
+def from_torch(model):
+    """`DenseCap` -> numpy f32 tree with the JAX package's names and
+    layouts (OIHW conv weights back to HWIO)."""
+    def n(x):
+        return x.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    def conv(w, b):
+        return {"w": np.ascontiguousarray(n(w).transpose(2, 3, 1, 0)),
+                "b": n(b)}
+
+    def trunk(tr):
+        return {name: conv(tr.weights[name], tr.biases[name])
+                for name in tr.weights}
+
+    rpn, rec, lm = model.rpn, model.recog, model.lm
+    return {
+        "trunk1": trunk(model.trunk1),
+        "trunk2": trunk(model.trunk2),
+        "rpn": {"conv": conv(rpn.conv_w, rpn.conv_b),
+                "box": conv(rpn.box_w, rpn.box_b),
+                "score": conv(rpn.score_w, rpn.score_b)},
+        "recog": {"fc6": {"w": n(rec.w6), "b": n(rec.b6)},
+                  "fc7": {"w": n(rec.w7), "b": n(rec.b7)}},
+        "objectness": {"w": n(model.obj_w), "b": n(model.obj_b)},
+        "box_reg": {"w": n(model.box_w), "b": n(model.box_b)},
+        "lm": {"img_enc": {"w": n(lm.enc_w), "b": n(lm.enc_b)},
+               "embed": n(lm.embed_w),
+               "lstm": {"Wx": n(lm.Wx), "Wh": n(lm.Wh), "b": n(lm.b)},
+               "proj": {"w": n(lm.proj_w), "b": n(lm.proj_b)}},
+    }

@@ -12,7 +12,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.serve.engine",
            "densecap_tpu_torch.models.densecap",
-           "densecap_tpu_torch.ops.cuda.build", "chip_smoke"]
+           "densecap_tpu_torch.ops.cuda.build",
+           "densecap_tpu_torch.ops.conv_pool",
+           "densecap_tpu_torch.ops.sampler", "densecap_tpu_torch.ops.losses",
+           "densecap_tpu_torch.parallel.train_step",
+           "densecap_tpu_torch.data.loader", "densecap_tpu_torch.cli.train",
+           "chip_smoke"]
 
 
 @pytest.mark.parametrize("module", MODULES)

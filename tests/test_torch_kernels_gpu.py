@@ -8,7 +8,10 @@ no CPU mode). On a machine with a card and nvcc:
 (`--noconftest` because the root conftest.py configures JAX.)
 These are the checks of chip_smoke.py's kernel phases at smaller
 shapes: NMS picks identical, RoI align within 1e-5 on unit-scale
-features, and each wrapper counting exactly its own launches.
+features and its backward (K2b) within 1e-5 of the plain autograd
+gradient's scale, the fused conv+pool (K3) in f32 within 1e-4 and in
+bf16 no worse than the plain version against an f32 oracle, and each
+wrapper counting exactly its own launches.
 """
 
 import numpy as np
@@ -16,19 +19,25 @@ import pytest
 import torch
 
 from densecap_tpu_torch.models.vgg16 import feat_extent
+from densecap_tpu_torch.ops import conv_pool as cp
 from densecap_tpu_torch.ops import nms as nms_mod
 from densecap_tpu_torch.ops import roi_align as roi_mod
 from densecap_tpu_torch.ops.boxes import xcycwh_to_x1y1x2y2
 from densecap_tpu_torch.ops.cuda import build
 
 pytestmark = pytest.mark.gpu
+NONE = {k: 0 for k in build.launches}
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda", 0)
+    # plain f32 convs in full f32, not TF32 (cuDNN's default)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _boxes(rng, b, n, clustered=False):
@@ -55,7 +64,7 @@ def test_nms_kernel_matches_plain(dev, presorted, clustered):
     args = (boxes, torch.from_numpy(scores).to(dev), 0.7, K)
     build.reset_launches()
     ki, kv = nms_mod.nms(*args, valid=valid, presorted=presorted)
-    assert build.launches == {"nms": 1, "roi_align": 0}
+    assert build.launches == dict(NONE, nms=1)
     pi, pv = nms_mod.nms_plain(*args, valid=valid, presorted=presorted)
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
@@ -72,15 +81,72 @@ def test_roi_align_kernel_matches_plain(dev):
     args = (feats, torch.from_numpy(bx).to(dev), img_h, img_w, fh, fw)
     build.reset_launches()
     got = roi_mod.roi_align(*args)
-    assert build.launches == {"nms": 0, "roi_align": 1}
+    assert build.launches == dict(NONE, roi_align=1)
     ref = roi_mod.roi_align_plain(*args)
     assert float((got - ref).abs().max()) <= 1e-5
 
 
-def test_roi_align_kernel_is_forward_only(dev):
-    feats = torch.zeros((1, 4, 4, 8), device=dev, requires_grad=True)
-    one = torch.ones(1, device=dev)
+@pytest.mark.parametrize("feats_grad", [False, True],
+                         ids=["frozen_trunk", "trunk_trains"])
+def test_roi_align_backward_matches_plain(dev, feats_grad):
+    rng = np.random.default_rng(1)
+    feats = torch.from_numpy(
+        rng.standard_normal((2, 45, 45, 256), dtype=np.float32)).to(dev)
+    img_h = torch.tensor([720.0, 540.0], device=dev)
+    img_w = torch.tensor([540.0, 720.0], device=dev)
+    fh, fw = feat_extent(img_h, img_w)
+    bx = torch.from_numpy(_boxes(rng, 2, 100) * [1, 1, 1.5, 1.5]
+                          ).float().to(dev)
+    g = torch.from_numpy(rng.standard_normal((2, 100, 7, 7, 256),
+                                             dtype=np.float32)).to(dev)
+
+    def grads(fn):
+        f = feats.clone().requires_grad_(feats_grad)
+        b = bx.clone().requires_grad_()
+        fn(f, b, img_h, img_w, fh, fw).backward(g)
+        return f.grad, b.grad
+
+    build.reset_launches()
+    kf, kb = grads(roi_mod.roi_align)
+    assert build.launches == dict(NONE, roi_align=1, roi_align_bwd=1,
+                                  roi_align_bwd_feats=int(feats_grad))
+    pf, pb = grads(roi_mod.roi_align_plain)
+    assert float((kb - pb).abs().max()) <= 1e-4 * float(pb.abs().max())
+    if feats_grad:
+        assert float((kf - pf).abs().max()) <= 1e-5 * float(pf.abs().max())
+
+
+@pytest.mark.parametrize("C,H,W", [(64, 37, 40), (128, 23, 26)])
+def test_conv_pool_kernel_matches_plain(dev, C, H, W):
+    rng = np.random.default_rng(C)
+    x = torch.from_numpy(rng.standard_normal((2, C, H, W), dtype=np.float32)
+                         ).to(dev).contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.standard_normal((C, C, 3, 3), dtype=np.float32)
+                         * (2 / (9 * C)) ** 0.5).to(dev)
+    b = torch.from_numpy(rng.standard_normal(C, dtype=np.float32) * 0.1
+                         ).to(dev)
+    eh = torch.tensor([H, H - 4.0], device=dev)
+    ew = torch.tensor([W - 1.0, W - 6.0], device=dev)
+    with torch.no_grad():
+        build.reset_launches()
+        got = cp.conv_relu_pool(x, w, b, eh, ew)
+        assert build.launches == dict(NONE, conv_pool=1)
+        ref = cp.conv_relu_pool_plain(x, w, b, eh, ew)
+        assert got.shape == ref.shape == (2, C, H // 2, W // 2)
+        assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4)
+        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        oracle = cp.conv_relu_pool_plain(x.bfloat16().float(),
+                                         wb.float(), bb.float(), eh, ew)
+        k_err = (cp.conv_relu_pool(xb, wb, bb, eh, ew).float() - oracle)
+        p_err = (cp.conv_relu_pool_plain(xb, wb, bb, eh, ew).float() - oracle)
+        assert float(k_err.abs().max()) <= 1.25 * float(p_err.abs().max())
+
+
+def test_conv_pool_kernel_has_no_gradient(dev):
+    x = torch.zeros((1, 64, 4, 4), device=dev, requires_grad=True)
+    w = torch.zeros((64, 64, 3, 3), device=dev)
     with pytest.raises(RuntimeError):
-        roi_mod.roi_align_cuda(feats, torch.ones((1, 2, 4), device=dev),
-                               one * 64, one * 64, one.int() * 4,
-                               one.int() * 4)
+        cp.conv_relu_pool_cuda(x.contiguous(memory_format=torch.channels_last),
+                               w, torch.zeros(64, device=dev),
+                               torch.ones(1, device=dev) * 4,
+                               torch.ones(1, device=dev) * 4)
