@@ -8,13 +8,17 @@ its result on its own line; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit;
   2. build: the kernels of densecap_tpu_torch/ops/cuda (one nvcc per
-     source, in parallel);
+     source, in parallel); the count of HGMMA (wgmma) instructions in the
+     SASS of K3's bf16 kernel, which must not be 0;
   3. K1 (NMS) against its plain PyTorch version at the serving shapes,
      picks required identical;
   4. K2 (RoI align) against its plain version, max abs error <= 1e-5;
   5. K3 (fused conv+ReLU+mask+pool) at trunk1's conv1_2 and conv2_2
      shapes in bf16: its max abs error against an f32 oracle no more
      than 1.25x the plain version's; in f32 within rtol 1e-4 of plain;
+     kernel and plain ms and TFLOP/s at both shapes; then trunk1's bf16
+     forward at B = 8 (720 px canvas, 540x720 frames) with K3 and with
+     cuDNN, printed only;
   6. K2b (RoI-align backward) at the training shape against plain
      autograd: d feats within 1e-5 and d boxes within 1e-4 of the
      reference gradient's largest entry;
@@ -32,7 +36,9 @@ its result on its own line; any failure raises and exits non-zero:
      and K3 must launch, K2b's feature scatter only after the flip.
 
 The last lines are a JSON object describing each kernel and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. K3's entry gives the sum of its two stages
+in "ms" / "plain_ms" (its cost per trunk1 forward) and each stage under
+"shapes".
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from __future__ import annotations
 import base64
 import io
 import json
+import re
 import statistics
 import subprocess
 import threading
@@ -48,11 +55,13 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from densecap_tpu_torch.config import DenseCapConfig
-from densecap_tpu_torch.models.vgg16 import feat_extent
+from densecap_tpu_torch.models.vgg16 import TRUNK1_CFG, Trunk, feat_extent
 from densecap_tpu_torch.ops import conv_pool as cp
 from densecap_tpu_torch.ops import nms as nms_mod
 from densecap_tpu_torch.ops import roi_align as roi_mod
@@ -64,6 +73,7 @@ from densecap_tpu_torch.serve.server import make_handler
 from densecap_tpu_torch.utils.checkpoint import from_torch, init_params, to_torch
 
 B = 8
+H100_BF16_TFLOPS = 989.0  # dense bf16 peak, NVIDIA's H100 SXM data sheet
 ROI_TOL = 1e-5
 CONV_POOL_RATIO = 1.25   # K3 error vs f32 oracle, at most this x plain's
 CONV_POOL_F32_RTOL = 1e-4
@@ -125,6 +135,18 @@ def phase_build():
     build.load()
     print(f"[build] nvcc sm_90a kernels ready in {build.build_seconds:.2f} s "
           f"({build.library_path().name})")
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())],
+                          check=True, capture_output=True, text=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "conv_pool_bf16_kernel" in name:
+            counts["C=" + re.search(r"ILi(\d+)E", name).group(1)] = len(
+                re.findall(r"\bHGMMA\.", fn))
+    print(f"[build] K3 bf16 kernel SASS: HGMMA (wgmma) instructions {counts}")
+    if len(counts) != 2 or not all(counts.values()):
+        raise AssertionError(f"K3's bf16 kernel issues no wgmma: {counts}")
 
 
 def phase_nms(dev):
@@ -199,7 +221,7 @@ def phase_roi(dev):
 def phase_conv_pool(dev):
     """K3 at trunk1's two fused stages, ragged extents."""
     g = torch.Generator(device=dev).manual_seed(5)
-    worst, first = 0.0, None
+    worst, shapes = 0.0, []
     for name, C, S, div in (("conv1_2+pool1", 64, 720, 1),
                             ("conv2_2+pool2", 128, 360, 2)):
         eh = torch.floor(torch.tensor(IMG_H, device=dev) / div)
@@ -219,6 +241,7 @@ def phase_conv_pool(dev):
             k_err = float((kb - oracle).abs().max())
             p_err = float((pb - oracle).abs().max())
             kp_err = float((kb - pb).abs().max())
+            equal = float((kb == pb).float().mean())
             del oracle, kb, pb
             kf = cp.conv_relu_pool_cuda(x, w, b, eh, ew)
             pf = cp.conv_relu_pool_plain(x, w, b, eh, ew)
@@ -228,18 +251,55 @@ def phase_conv_pool(dev):
             del kf, pf
             k_ms = cuda_ms(lambda: cp.conv_relu_pool_cuda(xb, wb, bb, eh, ew))
             p_ms = cuda_ms(lambda: cp.conv_relu_pool_plain(xb, wb, bb, eh, ew))
+        tflops = 2 * 9 * C * C * B * S * S / k_ms / 1e9
         print(f"[K3 conv_pool] {name} ({B},{S},{S},{C}) bf16: max abs err vs "
               f"f32 oracle kernel {k_err:.4e} plain {p_err:.4e} (ratio "
               f"{k_err / p_err:.3f}, limit {CONV_POOL_RATIO}); f32 kernel vs "
               f"plain max abs {f32_err:.3e} within rtol {CONV_POOL_F32_RTOL}="
-              f"{f32_ok}; bf16 kernel vs plain max abs {kp_err:.4e}; kernel "
-              f"{k_ms:.3f} ms plain {p_ms:.3f} ms")
+              f"{f32_ok}; bf16 kernel vs plain max abs {kp_err:.4e}, "
+              f"{equal:.5%} bit-equal; kernel {k_ms:.3f} ms = {tflops:.1f} "
+              f"TFLOP/s ({tflops / H100_BF16_TFLOPS:.1%} of the bf16 peak), "
+              f"plain {p_ms:.3f} ms")
         if not (k_err <= CONV_POOL_RATIO * p_err and f32_ok):
             raise AssertionError(f"K3 disagrees with plain at {name}")
         worst = max(worst, kp_err)
-        if first is None:
-            first = (k_ms, p_ms)
-    return {"max_abs_err": worst, "ms": first[0], "plain_ms": first[1]}
+        shapes.append({"shape": f"{name} ({B},{S},{S},{C}) bf16",
+                       "ms": k_ms, "plain_ms": p_ms, "tflops": tflops})
+    phase_trunk1(dev)
+    return {"max_abs_err": worst, "ms": sum(s["ms"] for s in shapes),
+            "plain_ms": sum(s["plain_ms"] for s in shapes), "shapes": shapes}
+
+
+def phase_trunk1(dev):
+    """Trunk1's bf16 forward with K3 and with cuDNN, for the record."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    convs, cin = {}, 3
+    for item in TRUNK1_CFG:
+        if item == "M":
+            continue
+        name, cout = item
+        wt = torch.randn((cout, cin, 3, 3), generator=g, device=dev) * (
+            2.0 / (9 * cin)) ** 0.5
+        convs[name] = (wt.bfloat16().contiguous(
+            memory_format=torch.channels_last),
+            (torch.randn((cout,), generator=g, device=dev) * 0.1).bfloat16())
+        cin = cout
+    trunk = Trunk(TRUNK1_CFG, convs, torch.bfloat16)
+    S, h, w = FLAGSHIP.image_size, 540, 720
+    x = torch.zeros((B, 3, S, S), device=dev).contiguous(
+        memory_format=torch.channels_last)
+    x[:, :, :h, :w] = torch.randn((B, 3, h, w), generator=g, device=dev) * 50
+    eh = torch.full((B,), float(h), device=dev)
+    ew = torch.full((B,), float(w), device=dev)
+    with torch.no_grad():
+        diff = float((trunk(x, eh, ew, fuse=True)
+                      - trunk(x, eh, ew)).abs().max())
+        ms = [cuda_ms(lambda f=f: trunk(x, eh, ew, fuse=f))
+              for f in (False, True, True, False)]
+    print(f"[K3 trunk1] bf16 forward, B={B}, {S} px canvas, {h}x{w} frames: "
+          f"with K3 {ms[1]:.3f} / {ms[2]:.3f} ms, with cuDNN conv + plain "
+          f"pool {ms[0]:.3f} / {ms[3]:.3f} ms; outputs max abs diff "
+          f"{diff:.3e}")
 
 
 def phase_roi_bwd(dev):

@@ -65,7 +65,9 @@ def conv_relu_pool_cuda(x, w, b, eh, ew):
     x_nhwc = x.permute(0, 2, 3, 1)
     if not x_nhwc.is_contiguous():
         raise ValueError("conv_relu_pool_cuda: x must be channels_last")
-    wt = w.permute(2, 3, 1, 0).contiguous()       # [dy][dx][ci][co]
+    # bf16: [dy][dx][co][ci], K-major for the wgmma; f32: [dy][dx][ci][co]
+    wt = w.permute((2, 3, 0, 1) if x.dtype == torch.bfloat16
+                   else (2, 3, 1, 0)).contiguous()
     ext = torch.stack([eh, ew], 1).float().contiguous()
     bias = b.contiguous()
     out = torch.empty((B, H // 2, W // 2, C), dtype=x.dtype, device=x.device)

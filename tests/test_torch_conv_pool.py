@@ -3,7 +3,9 @@ JAX package: the Pallas kernel in interpret mode, and the unfused
 `apply_trunk` stage where the kernel's geometry limits (H % 8, even W)
 exclude odd sizes. The port's `Trunk` with `fuse=True` must equal the
 unfused trunk. f32, rtol / atol 1e-4 (conv summation order differs
-between XLA:CPU and torch).
+between XLA:CPU and torch). In bf16 the plain version, the gate of the
+card kernel's rounding order, is held to within 2 bf16 ulps of the
+unfused JAX stage.
 """
 
 import jax.numpy as jnp
@@ -61,6 +63,43 @@ def test_odd_sizes_match_unfused_jax_trunk(C, H, W):
                           valid_w=float(ext[i, 1]))
         np.testing.assert_allclose(got[i], np.asarray(ref[0]), rtol=TOL,
                                    atol=TOL)
+
+
+def _bf16_bits(a):
+    """Top 16 bits of non-negative f32 values that are bf16 numbers."""
+    return (np.abs(np.asarray(a, np.float32)).view(np.uint32) >> 16
+            ).astype(np.int64)
+
+
+@pytest.mark.parametrize("C,H,W", [(64, 16, 12), (128, 13, 10)])
+def test_plain_bf16_matches_unfused_jax_stage(C, H, W):
+    # the bf16 stage rounds the f32 conv sums to bf16, adds the bf16 bias
+    # and rounds again, then ReLU, mask, pool, mask: the order the card
+    # kernel's epilogue reproduces. The f32 sums are taken in another
+    # order on XLA:CPU and torch, so a rounding may differ by an ulp.
+    ext = [[H, W], [H - 3, W - 5]]
+    x, w, b, ext = _case(C + 7, 2, H, W, C, ext)
+    x, w, b = (torch.from_numpy(a).bfloat16().float().numpy()
+               for a in (x, w, b))
+    xt = torch.from_numpy(x).bfloat16().permute(0, 3, 1, 2)
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    e = torch.from_numpy(ext)
+    got = conv_relu_pool_plain(xt, wt.bfloat16(),
+                               torch.from_numpy(b).bfloat16(), e[:, 0],
+                               e[:, 1])
+    assert got.dtype == torch.bfloat16
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    params = {"c": {"w": jnp.asarray(w), "b": jnp.asarray(b)}}
+    ref = np.concatenate([np.asarray(apply_trunk(
+        params, [("c", C), "M"], jnp.asarray(x[i:i + 1]), jnp.bfloat16,
+        valid_h=float(ext[i, 0]), valid_w=float(ext[i, 1])))
+        for i in range(2)])
+    assert got.shape == ref.shape == (2, H // 2, W // 2, C)
+    assert (got >= 0).all() and (ref >= 0).all()
+    ulps = np.abs(_bf16_bits(got) - _bf16_bits(ref))
+    equal = float((ulps == 0).mean())
+    assert ulps.max() <= 2, f"max {ulps.max()} ulps, {equal:.2%} bit-equal"
+    assert equal >= 0.99, f"only {equal:.2%} of the outputs are bit-equal"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -116,23 +116,42 @@ def test_roi_align_backward_matches_plain(dev, feats_grad):
         assert float((kf - pf).abs().max()) <= 1e-5 * float(pf.abs().max())
 
 
-@pytest.mark.parametrize("C,H,W", [(64, 37, 40), (128, 23, 26)])
-def test_conv_pool_kernel_matches_plain(dev, C, H, W):
+# K3's tiles are 32 conv columns x 2 conv rows per warpgroup, two tiles
+# per CTA, one CTA per SM: the cases cover a width that is not a multiple
+# of the tile and one just past it, odd heights, extents of 2x2 and 0,
+# three images of different extents, and more tiles than CTAs, so that
+# the persistent walk wraps. ext None: (H, W - 1) and (H - 4, W - 6).
+@pytest.mark.parametrize("C,H,W,ext", [
+    (64, 37, 40, None),
+    (128, 23, 26, None),
+    (64, 10, 100, [(10, 100), (7, 61)]),
+    (128, 9, 33, [(9, 33), (8, 30)]),
+    (64, 7, 66, [(7, 66), (5, 65)]),
+    (64, 12, 20, [(2, 2), (0, 0), (12, 20)]),
+    (128, 15, 70, [(15, 70), (9, 33), (4, 65)]),
+    (64, 200, 200, [(200, 200), (151, 97), (64, 200)]),
+    (128, 200, 200, [(200, 200), (151, 97), (64, 200)]),
+], ids=["c64", "c128", "w100", "w_tile_plus_1", "odd_h", "tiny_and_empty",
+        "b3_ragged", "wrap_c64", "wrap_c128"])
+def test_conv_pool_kernel_matches_plain(dev, C, H, W, ext):
     rng = np.random.default_rng(C)
-    x = torch.from_numpy(rng.standard_normal((2, C, H, W), dtype=np.float32)
+    if ext is None:
+        ext = [(H, W - 1.0), (H - 4.0, W - 6.0)]
+    n = len(ext)
+    x = torch.from_numpy(rng.standard_normal((n, C, H, W), dtype=np.float32)
                          ).to(dev).contiguous(memory_format=torch.channels_last)
     w = torch.from_numpy(rng.standard_normal((C, C, 3, 3), dtype=np.float32)
                          * (2 / (9 * C)) ** 0.5).to(dev)
     b = torch.from_numpy(rng.standard_normal(C, dtype=np.float32) * 0.1
                          ).to(dev)
-    eh = torch.tensor([H, H - 4.0], device=dev)
-    ew = torch.tensor([W - 1.0, W - 6.0], device=dev)
+    eh = torch.tensor([float(e[0]) for e in ext], device=dev)
+    ew = torch.tensor([float(e[1]) for e in ext], device=dev)
     with torch.no_grad():
         build.reset_launches()
         got = cp.conv_relu_pool(x, w, b, eh, ew)
         assert build.launches == dict(NONE, conv_pool=1)
         ref = cp.conv_relu_pool_plain(x, w, b, eh, ew)
-        assert got.shape == ref.shape == (2, C, H // 2, W // 2)
+        assert got.shape == ref.shape == (n, C, H // 2, W // 2)
         assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4)
         xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
         oracle = cp.conv_relu_pool_plain(x.bfloat16().float(),
