@@ -1,5 +1,5 @@
 """Card-side check of the PyTorch port: kernels, full-width engine, HTTP,
-full-width training.
+full-width training, evaluation and offline inference.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,9 @@ its result on its own line; any failure raises and exits non-zero:
   2. build: the kernels of densecap_tpu_torch/ops/cuda (one nvcc per
      source, in parallel); the count of HGMMA (wgmma) instructions in the
      SASS of K3's bf16 kernel, which must not be 0;
-  3. K1 (NMS) against its plain PyTorch version at the serving shapes,
-     picks required identical;
+  3. K1 (NMS) against its plain PyTorch version at the serving shapes and
+     at extract_features' (1000 unsorted -> 100 at 0.4), picks required
+     identical;
   4. K2 (RoI align) against its plain version, max abs error <= 1e-5;
   5. K3 (fused conv+ReLU+mask+pool) at trunk1's conv1_2 and conv2_2
      shapes in bf16: its max abs error against an f32 oracle no more
@@ -33,7 +34,25 @@ its result on its own line; any failure raises and exits non-zero:
      step at full width (the engine's model, 384 RoIs per image, bf16,
      B = 8, K3 on): 6 steps with the trunk frozen, the finetune flip,
      2 more. Trunk1 must not move, trunk2 only after the flip; K2, K2b
-     and K3 must launch, K2b's feature scatter only after the flip.
+     and K3 must launch, K2b's feature scatter only after the flip;
+  9. evaluation: eval_split over 20 in-memory 540x720 / 720x540 frames
+     with 1-30 captioned gt boxes each, at batch 8 (a tail of 4) and at
+     batch 1 with the loss pass: images/s, the mAP dict, equal mAP
+     within 1e-6, finite APs; then a small f32 model's mAP and detmap on
+     the card against the CPU within 1e-6 (mAP > 0 there: its 20 words
+     map to 5 strings, so captions meet references);
+ 10. beam search: forward_test_batch with a beam of 20 at batch 1 and 8
+     (ms/call, peak memory), tokens in [1, V+1], each beam score the sum
+     of its logprobs within 1e-3; a tiny f32 model card vs CPU at beams
+     1, 3 and 5, tokens identical;
+ 11. extract_features at B = 8 (100 boxes at 0.4): ms/call, shapes,
+     finite valid slots;
+ 12. the run_model CLI (--device cuda) on 8 JPEG frames and a full-width
+     checkpoint .npz: results.json with 8 entries, boxes inside each
+     frame, string captions.
+
+Phases 7 and 9-12 each drive their path with every launch count set to
+0 just before and read just after; K1 and K2 must launch on each.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. K3's entry gives the sum of its two stages
@@ -49,6 +68,7 @@ import json
 import re
 import statistics
 import subprocess
+import tempfile
 import threading
 import time
 import urllib.request
@@ -61,6 +81,7 @@ import numpy as np
 import torch
 
 from densecap_tpu_torch.config import DenseCapConfig
+from densecap_tpu_torch.eval.eval_split import eval_split
 from densecap_tpu_torch.models.vgg16 import TRUNK1_CFG, Trunk, feat_extent
 from densecap_tpu_torch.ops import conv_pool as cp
 from densecap_tpu_torch.ops import nms as nms_mod
@@ -70,7 +91,8 @@ from densecap_tpu_torch.ops.cuda import build
 from densecap_tpu_torch.parallel.train_step import Trainer, batched_loss
 from densecap_tpu_torch.serve.engine import InferenceEngine
 from densecap_tpu_torch.serve.server import make_handler
-from densecap_tpu_torch.utils.checkpoint import from_torch, init_params, to_torch
+from densecap_tpu_torch.utils.checkpoint import (from_torch, init_params,
+                                                 save_params, to_torch)
 
 B = 8
 H100_BF16_TFLOPS = 989.0  # dense bf16 peak, NVIDIA's H100 SXM data sheet
@@ -168,7 +190,11 @@ def phase_nms(dev):
                   random_boxes(rng, 6000, clustered=True),
                   np.round(rng.uniform(0, 1, (B, 6000)), 2).astype(np.float32),
                   np.ones((B, 6000), bool), 0.7, 1000, False))
-    first, err = None, 0.0
+    # extract_features shape: 1000 unsorted -> 100 at 0.4, valid mask
+    cases.append(("extract_features 1000->100 @0.4", random_boxes(rng, 1000),
+                  rng.normal(0, 3, (B, 1000)).astype(np.float32),
+                  rng.uniform(0, 1, (B, 1000)) > 0.1, 0.4, 100, False))
+    shapes, err = [], 0.0
     for name, bx, sc, va, thr, k, pre in cases:
         boxes = xcycwh_to_x1y1x2y2(torch.from_numpy(bx).to(dev))
         scores_t = torch.from_numpy(sc).to(dev)
@@ -189,9 +215,9 @@ def phase_nms(dev):
               f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
         if not same:
             raise AssertionError(f"K1 picks differ from plain in {name}")
-        if first is None:
-            first = (k_ms, p_ms)
-    return {"max_abs_err": err, "ms": first[0], "plain_ms": first[1]}
+        shapes.append({"shape": f"B={B} {name}", "ms": k_ms, "plain_ms": p_ms})
+    return {"max_abs_err": err, "ms": shapes[0]["ms"],
+            "plain_ms": shapes[0]["plain_ms"], "shapes": shapes}
 
 
 def phase_roi(dev):
@@ -346,15 +372,18 @@ def phase_roi_bwd(dev):
     return {"max_abs_err": max(f_abs, b_abs), "ms": k_ms, "plain_ms": p_ms}
 
 
-def phase_reference(dev):
-    """A small f32 model on the card against the same model on the CPU."""
-    cfg = DenseCapConfig(
-        vocab_size=20, seq_length=4, image_size=96,
-        anchors=((8, 8), (16, 16), (12, 24), (24, 12)),
-        test_max_proposals=12, test_pre_nms_topk=64, rnn_size=32,
-        rnn_encoding_size=32, fc_dim=64, rpn_num_filters=32,
-        compute_dtype=torch.float32)
-    params = init_params(cfg, seed=3)
+TINY_REF = DenseCapConfig(
+    vocab_size=20, seq_length=4, image_size=96,
+    anchors=((8, 8), (16, 16), (12, 24), (24, 12)),
+    test_max_proposals=12, test_pre_nms_topk=64, rnn_size=32,
+    rnn_encoding_size=32, fc_dim=64, rpn_num_filters=32,
+    compute_dtype=torch.float32)
+
+
+def tiny_card_vs_cpu(dev, use_beam=0):
+    """A small f32 model's forward_test_batch on the card and on the CPU:
+    (valid / num / captions identical, boxes max err, scores max err)."""
+    params = init_params(TINY_REF, seed=3)
     rng = np.random.default_rng(3)
     ims = (rng.standard_normal((2, 96, 96, 3)) * 30).astype(np.float32)
     hs = np.array([96, 72], np.float32)
@@ -363,15 +392,21 @@ def phase_reference(dev):
     ims[1, 72:] = 0
     outs = []
     for d in (dev, torch.device("cpu")):
-        m = to_torch(params, cfg, d)
+        m = to_torch(params, TINY_REF, d)
         o = m.forward_test_batch(torch.from_numpy(ims).to(d),
                                  torch.from_numpy(hs).to(d),
-                                 torch.from_numpy(ws).to(d))
+                                 torch.from_numpy(ws).to(d),
+                                 use_beam=use_beam)
         outs.append({k: v.cpu() for k, v in o._asdict().items()})
     g, c = outs
     exact = all(torch.equal(g[k], c[k]) for k in ("valid", "num", "captions"))
-    box_err = float((g["boxes"] - c["boxes"]).abs().max())
-    score_err = float((g["scores"] - c["scores"]).abs().max())
+    return (exact, float((g["boxes"] - c["boxes"]).abs().max()),
+            float((g["scores"] - c["scores"]).abs().max()))
+
+
+def phase_reference(dev):
+    """A small f32 model on the card against the same model on the CPU."""
+    exact, box_err, score_err = tiny_card_vs_cpu(dev)
     print(f"[reference] tiny f32 model, card vs CPU plain path: valid/num/"
           f"captions identical={exact} boxes max err {box_err:.2e} scores "
           f"max err {score_err:.2e}")
@@ -641,6 +676,248 @@ def phase_http(engine, frames):
         t.join(timeout=10)
 
 
+class MemoryLoader:
+    """The split API of the port's DenseCapLoader over examples held in
+    memory (the card machine has no h5py). Every split is the one list."""
+
+    def __init__(self, examples, vocab):
+        self.examples = examples
+        self.vocab = vocab
+        self.pos = 0
+
+    def idx_to_token(self):
+        return self.vocab
+
+    def reset_iterator(self, split):
+        self.pos = 0
+
+    def split_size(self, split):
+        return len(self.examples)
+
+    def get_example(self, split=1, iterate=True):
+        ex = self.examples[self.pos]
+        self.pos = (self.pos + 1) % len(self.examples)
+        return ex
+
+
+def eval_examples(cfg, n=20):
+    """n uint8 canvases of landscape and portrait 3:4 frames (540x720 and
+    720x540 at 720 px; alternating) with 1-30 gt boxes and captions each,
+    from a seed, as loader examples."""
+    rng = np.random.default_rng(9)
+    S = cfg.image_size
+    halves = [make_train_batch(rng, cfg, n // 2, hw, 30)
+              for hw in ((S * 3 // 4, S), (S, S * 3 // 4))]
+    examples = []
+    for i in range(n):
+        batch, j = halves[i % 2], i // 2
+        ex = {k: v[j].numpy() for k, v in batch.items()}
+        ex.update(ix=i, filename=f"frame{i}.jpg", split_pos=(i, n))
+        examples.append(ex)
+    return examples
+
+
+def read_launches(fn):
+    """Run fn() with every launch count set to 0 first; (result, counts)."""
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(build.launches)
+
+
+def need_launches(counts, names, path):
+    if not all(counts[k] > 0 for k in names):
+        raise AssertionError(f"a kernel of the {path} path never launched: "
+                             f"{counts}")
+
+
+def phase_eval(dev, model, vocab):
+    """eval_split over 20 in-memory frames: at batch 8 (a tail of 4) and
+    at batch 1 with the training-loss pass."""
+    loader = MemoryLoader(eval_examples(model.cfg), vocab)
+    runs = {}
+    for bs in (8, 1):
+        t0 = time.perf_counter()
+        res, counts = read_launches(lambda: eval_split(
+            model, loader, split=1, batch_size=bs, verbose=False,
+            compute_losses=bs == 1))
+        wall = time.perf_counter() - t0
+        ap = res["ap_results"]
+        runs[bs] = ap
+        aps = list(ap["ap_breakdown"].values()) + list(
+            ap["det_breakdown"].values())
+        loss = res["loss_results"].get("total_loss")
+        print(f"[eval] batch {bs}: {loader.split_size(1)} frames in "
+              f"{wall:.3f} s = {loader.split_size(1) / wall:.2f} images/s "
+              f"(host clock, evaluator included"
+              f"{', loss pass on' if bs == 1 else ''}); map {ap['map']:.6g} "
+              f"detmap {ap['detmap']:.6g} score_method {ap['score_method']}"
+              f"{f' val total_loss {loss:.4f}' if loss is not None else ''}; "
+              f"launches {counts}")
+        need_launches(counts, ("nms", "roi_align"), "eval")
+        if not (np.isfinite(aps).all() and (loss is None
+                                             or np.isfinite(loss))):
+            raise AssertionError(f"non-finite eval result at batch {bs}")
+    print(f"[eval] mAP batch 8 vs batch 1: {runs[8]['map']:.9g} vs "
+          f"{runs[1]['map']:.9g}; detmap {runs[8]['detmap']:.9g} vs "
+          f"{runs[1]['detmap']:.9g}")
+    if abs(runs[8]["map"] - runs[1]["map"]) > 1e-6:
+        raise AssertionError("batch-8 and batch-1 eval disagree on mAP")
+    # random full-width captions never meet a reference (mAP 0), so a
+    # small f32 model with a 20-word vocabulary and anchors the size of
+    # the gt boxes checks mAP card vs CPU
+    cfg = TINY_REF.replace(max_gt_boxes=8, test_max_proposals=50, anchors=(
+        (24, 24), (40, 40), (32, 48), (48, 32)))
+    tiny = MemoryLoader(eval_examples(cfg, n=8), {
+        i: f"w{i % 5}" for i in range(1, cfg.vocab_size + 1)})
+    aps = [eval_split(to_torch(init_params(cfg, seed=3), cfg, d), tiny,
+                      batch_size=4, verbose=False)["ap_results"]
+           for d in (dev, torch.device("cpu"))]
+    print(f"[eval reference] tiny f32 model, 8 frames at batch 4, card vs "
+          f"CPU: map {aps[0]['map']:.9g} vs {aps[1]['map']:.9g}, detmap "
+          f"{aps[0]['detmap']:.9g} vs {aps[1]['detmap']:.9g}")
+    if not (aps[1]["map"] > 0 and all(
+            abs(aps[0][k] - aps[1][k]) <= 1e-6 for k in ("map", "detmap"))):
+        raise AssertionError("the card's eval disagrees with the CPU")
+    return counts
+
+
+def canvases(dev, n, S):
+    """n normalized S px canvases holding landscape and portrait 3:4
+    frames (alternating), and their extents."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.zeros((n, S, S, 3), device=dev)
+    h = torch.tensor([S * 3 // 4, S] * (n // 2) + [S * 3 // 4] * (n % 2),
+                     dtype=torch.float32, device=dev)
+    w = S * 3 // 4 + S - h
+    for i in range(n):
+        a, b = int(h[i]), int(w[i])
+        x[i, :a, :b] = torch.randn((a, b, 3), generator=g, device=dev) * 50
+    return x, h, w
+
+
+def phase_beam(dev, model):
+    """forward_test_batch with a beam of 20 at batch 1 and 8; the beam
+    scores against their logprob sums; a tiny f32 model card vs CPU."""
+    V, T = model.cfg.vocab_size, model.cfg.seq_length
+    x, h, w = canvases(dev, B, model.cfg.image_size)
+    launches = None
+    for n in (1, B):
+        args = (x[:n], h[:n], w[:n])
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = read_launches(
+            lambda: model.forward_test_batch(*args, use_beam=20))
+        if launches is None:
+            launches = counts
+        ms = cuda_ms(lambda: model.forward_test_batch(*args, use_beam=20),
+                     runs=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        caps = out.captions
+        in_range = bool(((caps >= 1) & (caps <= V + 1)).all())
+        print(f"[beam] beam 20, batch {n} ({model.cfg.test_max_proposals} "
+              f"proposals, vocab {V}, {T} steps): {ms:.1f} ms/call (CUDA "
+              f"events, median of 3 after 1 warm-up), peak device memory "
+              f"{peak / 2**30:.2f} GiB; tokens in [1, V+1]={in_range}; "
+              f"launches {counts}")
+        if not in_range:
+            raise AssertionError("beam search emitted a token out of range")
+    need_launches(launches, ("nms", "roi_align"), "beam")
+    # the winning beam's score is the sum of its per-step logprobs
+    _, codes, _ = model.extract_features(x[:1], h[:1], w[:1])
+    with torch.inference_mode():
+        _, lps, score = model.lm.beamsearch(codes[0], T, 20)
+    gap = float((lps.sum(1) - score).abs().max())
+    print(f"[beam] 100 regions: max |sum(logprobs) - beam score| {gap:.2e} "
+          f"(tol 1e-3), scores {float(score.min()):.2f} to "
+          f"{float(score.max()):.2f}")
+    if not gap <= 1e-3:
+        raise AssertionError("beam logprobs do not sum to the beam score")
+    for beam in (1, 3, 5):
+        exact, box_err, score_err = tiny_card_vs_cpu(dev, use_beam=beam)
+        print(f"[beam reference] tiny f32 model, beam {beam}, card vs CPU: "
+              f"valid/num/captions identical={exact} boxes max err "
+              f"{box_err:.2e} scores max err {score_err:.2e}")
+        if not (exact and box_err <= 1e-3 and score_err <= 1e-3):
+            raise AssertionError(f"beam {beam}: card disagrees with the CPU")
+    return launches
+
+
+def phase_extract(dev, model):
+    """extract_features at B = 8, full width: 100 boxes at 0.4."""
+    x, h, w = canvases(dev, B, model.cfg.image_size)
+    (boxes, codes, valid), counts = read_launches(
+        lambda: model.extract_features(x, h, w))
+    ms = cuda_ms(lambda: model.extract_features(x, h, w))
+    ok = (boxes.shape == (B, 100, 4)
+          and codes.shape == (B, 100, model.cfg.fc_dim)
+          and valid.shape == (B, 100)
+          and bool(torch.isfinite(boxes[valid]).all())
+          and bool(torch.isfinite(codes[valid]).all())
+          and bool((valid.sum(1) <= 100).all()))
+    print(f"[extract_features] B={B}, 100 boxes @0.4: {ms:.3f} ms/call (CUDA "
+          f"events, median of 10); valid per image {valid.sum(1).tolist()}; "
+          f"shapes and finite valid slots ok={ok}; launches {counts}")
+    need_launches(counts, ("nms", "roi_align"), "extract_features")
+    if not ok:
+        raise AssertionError("extract_features output is malformed")
+    return counts
+
+
+def phase_run_model(dev, params, vocab):
+    """The run_model CLI on 8 JPEG frames and a full-width checkpoint."""
+    from PIL import Image
+
+    from densecap_tpu_torch.cli import run_model
+
+    sizes = [(540, 720), (720, 540), (480, 640), (600, 800)] * 2
+    rng = np.random.default_rng(11)
+    work = Path(__file__).resolve().parent / "build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        tmp = Path(tmp)
+        (tmp / "frames").mkdir()
+        for i, (fh, fw) in enumerate(sizes):
+            Image.fromarray(rng.integers(0, 256, (fh, fw, 3), dtype=np.uint8)
+                            ).save(tmp / "frames" / f"f{i}.jpg")
+        t0 = time.perf_counter()
+        meta = json.dumps({"vocab_size": FLAGSHIP.vocab_size,
+                           "seq_length": FLAGSHIP.seq_length,
+                           "idx_to_token": {str(k): v
+                                            for k, v in vocab.items()},
+                           "config": FLAGSHIP.to_json()})
+        save_params(tmp / "ck.npz", params, extra={"meta": meta})
+        mb = (tmp / "ck.npz").stat().st_size / 2**20
+        t1 = time.perf_counter()
+        _, counts = read_launches(lambda: run_model.main([
+            "--checkpoint", str(tmp / "ck.npz"), "--input_dir",
+            str(tmp / "frames"), "--output_dir", str(tmp / "out"),
+            "--image_size", str(FLAGSHIP.image_size), "--num_proposals",
+            str(FLAGSHIP.test_max_proposals), "--device", "cuda"]))
+        t2 = time.perf_counter()
+        with open(tmp / "out" / "results.json") as f:
+            results = json.load(f)["results"]
+    ok = len(results) == len(sizes)
+    for r in results:
+        fh, fw = sizes[int(r["img_name"][1:-4])]
+        b = np.asarray(r["boxes"], np.float64).reshape(-1, 4)
+        ok = ok and bool(
+            len(b) and (b[:, :2] >= 1 - 2).all()
+            and (b[:, 0] + b[:, 2] - 1 <= fw + 2).all()
+            and (b[:, 1] + b[:, 3] - 1 <= fh + 2).all()
+            and all(isinstance(c, str) for c in r["captions"])
+            and len(r["captions"]) == len(b) == len(r["scores"]))
+    print(f"[run_model] CLI on 8 JPEGs, full-width checkpoint ({mb:.0f} MiB, "
+          f"written in {t1 - t0:.1f} s): {t2 - t1:.1f} s for load + 8 images; "
+          f"results.json entries {len(results)}, boxes per image "
+          f"{[len(r['boxes']) for r in results]}, inside each frame (2 px "
+          f"margin) with string captions={ok}; launches {counts}")
+    need_launches(counts, ("nms", "roi_align"), "run_model")
+    if not ok:
+        raise AssertionError("run_model's results.json is wrong")
+    return counts
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -657,15 +934,26 @@ def main():
     serve = phase_engine(dev, params)
     phase_train_reference(dev)
     train = phase_train(dev, params)
+    vocab = {i: f"w{i}" for i in range(1, FLAGSHIP.vocab_size + 1)}
+    model = to_torch(params, FLAGSHIP, dev)
+    paths = {"serve": serve, "eval": phase_eval(dev, model, vocab),
+             "beam": phase_beam(dev, model),
+             "extract_features": phase_extract(dev, model)}
+    del model
+    torch.cuda.empty_cache()
+    paths["run_model"] = phase_run_model(dev, params, vocab)
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",
          "replaces": "densecap_tpu/ops/pallas/nms_kernel.py:146",
-         "launches": serve["nms"], **k1},
+         "launches": serve["nms"],
+         "launches_by_path": {p: c["nms"] for p, c in paths.items()}, **k1},
         {"name": "roi_align", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/roi_align.cu",
          "replaces": "densecap_tpu/ops/pallas/roi_align_kernel.py:141",
-         "launches": serve["roi_align"], **k2},
+         "launches": serve["roi_align"],
+         "launches_by_path": {p: c["roi_align"] for p, c in paths.items()},
+         **k2},
         {"name": "roi_align_bwd", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/roi_align.cu",
          "replaces": "densecap_tpu/ops/pallas/roi_align_kernel.py:141",

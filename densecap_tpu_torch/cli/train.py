@@ -10,13 +10,15 @@ trains; trunk2 trains from `--finetune_cnn_after` on, with fresh Adam
 state at the flip. Every `--losses_log_every` iterations the losses are
 printed and kept; a NaN loss, or one past 100 x the first, aborts.
 
-Every `--save_checkpoint_every` iterations, and at `--max_iters`, it
-writes `<checkpoint_path>.json` (options, iteration, loss history),
-`<checkpoint_path>.npz` (the parameters in the JAX package's layout with
-`__extra__/meta`, readable by both packages' `load_params`) and
-`<checkpoint_path>.optim.pt` (the Adam state, `torch.save`). Validation
-mAP and the best-score gate it drives are not ported yet, so every
-interval saves.
+Every `--save_checkpoint_every` iterations, at `--max_iters`, and after
+the first iteration with `--eval_first_iteration`, it evaluates on up to
+`--val_images_use` images of the val split (`eval.eval_split`, with the
+loss pass) and writes `<checkpoint_path>.json` (options, iteration, loss
+history, and `results_history`: the val losses and mAP of every
+evaluation). Only when the val mAP beats the best so far does it also
+write `<checkpoint_path>.npz` (the parameters in the JAX package's
+layout with `__extra__/meta`, readable by both packages' `load_params`)
+and `<checkpoint_path>.optim.pt` (the Adam state, `torch.save`).
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ import torch
 
 from ..config import DenseCapConfig
 from ..data.loader import BATCH_KEYS, DenseCapLoader, PrefetchingLoader
+from ..eval.eval_split import eval_split
 from ..parallel.train_step import Trainer, cosine_decay_schedule
 from ..utils import checkpoint as ckpt
+from ._common import resolve_device
 
 
 def build_argparser():
@@ -67,12 +71,16 @@ def build_argparser():
     p.add_argument("--max_iters", type=int, default=-1)
     p.add_argument("--batch_size", type=int, default=1, help="images per step")
     p.add_argument("--finetune_cnn_after", type=int, default=-1)
-    # checkpointing and logging
+    # evaluation, checkpointing and logging
+    p.add_argument("--val_images_use", type=int, default=1000,
+                   help="val images per evaluation (-1 = the whole split)")
     p.add_argument("--save_checkpoint_every", type=int, default=10000,
-                   help="save every this many iterations (no validation "
-                        "gate yet: every interval saves)")
+                   help="evaluate every this many iterations; the "
+                        "checkpoint is saved when val mAP improves")
     p.add_argument("--checkpoint_path", default="checkpoints/densecap")
     p.add_argument("--losses_log_every", type=int, default=10)
+    p.add_argument("--eval_first_iteration", type=int, default=0,
+                   help="also evaluate after the first iteration")
     p.add_argument("--seed", type=int, default=123)
     return p
 
@@ -83,12 +91,8 @@ def _to_device(batch, device):
     return out
 
 
-def save_checkpoint(args, trainer, it, loss_history, meta):
+def save_checkpoint(args, trainer, it, meta):
     prefix = args.checkpoint_path
-    os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
-    with open(prefix + ".json", "w") as f:
-        json.dump({"opt": vars(args), "iter": it,
-                   "loss_history": loss_history, "results_history": {}}, f)
     ckpt.save_params(prefix + ".npz", ckpt.from_torch(trainer.model),
                      extra={"meta": meta})
     torch.save({"optimizer": trainer.opt.state_dict(), "iter": it,
@@ -96,11 +100,23 @@ def save_checkpoint(args, trainer, it, loss_history, meta):
     print(f"saved checkpoint to {prefix}.npz")
 
 
+def write_history(args, it, loss_history, results_history):
+    prefix = args.checkpoint_path
+    os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
+    with open(prefix + ".json", "w") as f:
+        json.dump({"opt": vars(args), "iter": it,
+                   "loss_history": loss_history,
+                   "results_history": results_history}, f)
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     loader = DenseCapLoader(args.data_h5, args.data_json,
                             max_gt_boxes=args.max_gt_boxes)
+    # evaluation reads its own handle, apart from the prefetch thread's
+    val_loader = DenseCapLoader(args.data_h5, args.data_json,
+                                max_gt_boxes=args.max_gt_boxes)
     cfg = DenseCapConfig(
         vocab_size=loader.vocab_size(),
         seq_length=loader.seq_length(),
@@ -141,7 +157,8 @@ def main(argv=None):
     })
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
     prefetch = PrefetchingLoader(loader, args.batch_size, split=0)
-    loss_history = {}
+    loss_history, results_history = {}, {}
+    best_val_score = -1.0
     loss0 = None
     it = 0
     try:
@@ -167,11 +184,24 @@ def main(argv=None):
                 raise SystemExit(
                     f"loss exploded ({total} > 100 x {loss0}); aborting")
             if (it % args.save_checkpoint_every == 0
+                    or (args.eval_first_iteration and it == 1)
                     or 0 < args.max_iters == it):
-                save_checkpoint(args, trainer, it, loss_history, meta)
+                results = eval_split(trainer.model, val_loader, split=1,
+                                     max_images=args.val_images_use,
+                                     verbose=False)
+                map_score = results["ap_results"]["map"]
+                results_history[it] = {
+                    "loss_results": results["loss_results"],
+                    "map": map_score}
+                print(f"iter {it}: val mAP {100 * map_score:.4f}")
+                write_history(args, it, loss_history, results_history)
+                if map_score > best_val_score:
+                    best_val_score = map_score
+                    save_checkpoint(args, trainer, it, meta)
     finally:
         prefetch.close()
         loader.close()
+        val_loader.close()
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 canvases.
 
 Twin of the raw-uint8 path of `densecap_tpu/data/loader.py`
-(`DenseCapLoader(raw_images=True)`) and of its `PrefetchingLoader`. Images
-come back as the h5's uint8 BGR canvases (S, S, 3); the train step
-normalizes them on the device (`utils/image.py:normalize_uint8_images`).
+(`DenseCapLoader(raw_images=True)`, with the split API that evaluation
+and the CLIs use) and of its `PrefetchingLoader`. Images come back as the
+h5's uint8 BGR canvases (S, S, 3); the model's caller normalizes them on
+the device (`utils/image.py:normalize_uint8_images`).
 Ground truth is padded to `max_gt_boxes` rows with a validity mask (and
 uniformly subsampled when an image has more). `h5py` is imported when a
 loader is made, not with this module.
@@ -35,6 +36,8 @@ class DenseCapLoader:
         self.rng = np.random.RandomState(seed)
         self.image_heights = self.h5["image_heights"][:]
         self.image_widths = self.h5["image_widths"][:]
+        self.original_heights = self.h5["original_heights"][:]
+        self.original_widths = self.h5["original_widths"][:]
         self.boxes = self.h5["boxes"][:].astype(np.float32)
         self.labels = self.h5["labels"][:].astype(np.int32)
         self.img_to_first_box = self.h5["img_to_first_box"][:]
@@ -50,14 +53,28 @@ class DenseCapLoader:
     def seq_length(self):
         return self.labels.shape[1]
 
-    def get_example(self, split=0):
-        """The split's next padded example (host numpy), in order,
-        wrapping at the end."""
+    def idx_to_token(self):
+        return {int(k): v for k, v in self.info["idx_to_token"].items()}
+
+    def reset_iterator(self, split):
+        self.iterators[split] = 0
+
+    def split_size(self, split):
+        return len(self.split_ix[split])
+
+    def get_example(self, split=0, iterate=True):
+        """One padded example (host numpy): the split's next, in order and
+        wrapping at the end, or with `iterate=False` one drawn at random.
+        Besides the batch keys it carries the dataset index `ix`, the
+        image's `filename` and `split_pos` (position, split size)."""
         ix_list = self.split_ix[split]
         if not len(ix_list):
             raise ValueError(f"split {split} is empty")
-        ri = self.iterators[split]
-        self.iterators[split] = (ri + 1) % len(ix_list)
+        if iterate:
+            ri = self.iterators[split]
+            self.iterators[split] = (ri + 1) % len(ix_list)
+        else:
+            ri = self.rng.randint(len(ix_list))
         ix = int(ix_list[ri])
         image = self.h5["images"][ix].transpose(1, 2, 0)  # (S, S, 3) uint8
         r0 = int(self.img_to_first_box[ix]) - 1  # 1-indexed inclusive
@@ -78,6 +95,9 @@ class DenseCapLoader:
             "gt_boxes": gt_boxes,
             "gt_labels": gt_labels,
             "gt_valid": np.arange(G) < n,
+            "ix": ix,
+            "filename": self.info["idx_to_filename"].get(str(ix + 1)),
+            "split_pos": (ri, len(ix_list)),
         }
 
     def get_batch(self, batch_size=1, split=0):

@@ -2,11 +2,11 @@
 -> decode).
 
 Twin of `densecap_tpu/models/densecap.py` (`features`, `forward_train`,
-`forward_test`, `forward_test_batch`). The JAX package vmaps a
-single-image function; here the batch dimension is real and each image
-carries its own extent. All B*K rows decode together, which equals the
-vmapped per-image while loops because finished rows emit END with
-logprob 0.
+`forward_test`, `forward_test_batch`, `extract_features`). The JAX
+package vmaps a single-image function; here the batch dimension is real
+and each image carries its own extent. All B*K rows decode together,
+greedily or by beam search, which equals the vmapped per-image loops
+because finished rows emit END with logprob 0.
 """
 
 from __future__ import annotations
@@ -53,8 +53,8 @@ class DenseCap(nn.Module):
         self.lm = lm
 
     def features(self, images, img_h, img_w):
-        """(B, S, S, 3) f32 BGR mean-subtracted canvases -> (B, 512, S/16,
-        S/16) f32 channels_last, zero past each image's extent.
+        """(B, H, W, 3) f32 BGR mean-subtracted canvases -> (B, 512, H/16,
+        W/16) f32 channels_last, zero past each image's extent.
 
         Trunk1 (with K3 when `cfg.fuse_conv_pool`) always runs without
         gradient: the reference never trains it. With
@@ -76,7 +76,7 @@ class DenseCap(nn.Module):
                       gt_valid, *, generator=None, debug_sampler=None):
         """Per-image training losses, each (B,).
 
-        images: (B, S, S, 3) f32 normalized canvases; img_h / img_w (B,);
+        images: (B, H, W, 3) f32 normalized canvases; img_h / img_w (B,);
         gt_boxes (B, G, 4) xcycwh; gt_labels (B, G, L) tokens (0-padded);
         gt_valid (B, G) bool. `generator` draws the sample and dropout;
         debug_sampler: dict(pos=(P,), neg=(M,)) ordinals replacing the
@@ -123,48 +123,72 @@ class DenseCap(nn.Module):
             + losses["box_decay_loss"] + end_obj + end_box + cap)
         return losses
 
+    def _detect(self, images, img_h, img_w, rpn_nms_thresh=None,
+                max_proposals=None):
+        """Trunk, localization and recognition: (RoI valid (B, K), codes
+        (B, K, D), objectness (B, K), final xcycwh boxes (B, K, 4))."""
+        img_h, img_w = img_h.float(), img_w.float()
+        feats = self.features(images, img_h, img_w)
+        loc = localize_test(
+            self.rpn, feats, img_h, img_w, self.cfg,
+            self.cfg.anchor_tensor(images.device), nms_thresh=rpn_nms_thresh,
+            max_proposals=max_proposals)
+        B, K = loc.roi_boxes.shape[:2]
+        codes = self.recog(loc.roi_feats.flatten(0, 1))
+        scores = self._linear(codes, self.obj_w, self.obj_b)[:, 0].reshape(B, K)
+        trans = self._linear(codes, self.box_w, self.box_b).reshape(B, K, 4)
+        boxes = apply_box_transform(loc.roi_boxes, trans)
+        return loc.roi_valid, codes.reshape(B, K, -1), scores, boxes
+
     @torch.inference_mode()
     def forward_test_batch(self, images, img_h, img_w, *,
                            rpn_nms_thresh: Optional[float] = None,
                            final_nms_thresh: Optional[float] = None,
                            max_proposals: Optional[int] = None,
                            use_beam: int = 0) -> TestOutput:
-        """images: (B, S, S, 3) f32 canvases; img_h / img_w: (B,) f32
-        true sizes on the canvas."""
-        if use_beam > 0:
-            raise NotImplementedError("beam search is not ported yet")
+        """images: (B, H, W, 3) f32 canvases (any H, W; a canvas cropped to
+        a bucket gives the outputs of the square one); img_h / img_w: (B,)
+        f32 true sizes on the canvas. `use_beam` > 0 decodes with a beam
+        search of that width, 0 greedily."""
         cfg = self.cfg
         final_nms = (cfg.test_final_nms_thresh if final_nms_thresh is None
                      else final_nms_thresh)
-        img_h = img_h.float()
-        img_w = img_w.float()
-        feats = self.features(images, img_h, img_w)
-        loc = localize_test(
-            self.rpn, feats, img_h, img_w, cfg,
-            cfg.anchor_tensor(images.device), nms_thresh=rpn_nms_thresh,
-            max_proposals=max_proposals)
-        B, K = loc.roi_boxes.shape[:2]
-
-        codes = self.recog(loc.roi_feats.flatten(0, 1))
-        scores = self._linear(codes, self.obj_w, self.obj_b)[:, 0].reshape(B, K)
-        trans = self._linear(codes, self.box_w, self.box_b).reshape(B, K, 4)
-        boxes = apply_box_transform(loc.roi_boxes, trans)
+        valid, codes, scores, boxes = self._detect(
+            images, img_h, img_w, rpn_nms_thresh, max_proposals)
+        B, K = scores.shape
         if cfg.clip_final_boxes:
-            boxes, _ = clip_boxes(boxes, img_w[:, None], img_h[:, None])
-        codes = codes.reshape(B, K, -1)
-
-        valid = loc.roi_valid
+            boxes, _ = clip_boxes(boxes, img_w.float()[:, None],
+                                  img_h.float()[:, None])
         if final_nms > 0:
             idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores, final_nms,
-                             K, valid=loc.roi_valid)
+                             K, valid=valid)
             boxes, scores, codes = (gather_rows(x, idx)
                                     for x in (boxes, scores, codes))
 
-        captions, lps = self.lm.greedy_decode(codes.reshape(B * K, -1),
-                                              cfg.seq_length)
+        if use_beam > 0:
+            captions, lps, _ = self.lm.beamsearch(
+                codes.reshape(B * K, -1), cfg.seq_length, use_beam)
+        else:
+            captions, lps = self.lm.greedy_decode(codes.reshape(B * K, -1),
+                                                  cfg.seq_length)
         T = captions.shape[1]
         return TestOutput(
             boxes=boxes, scores=scores,
             captions=captions.reshape(B, K, T),
             caption_logprobs=lps.reshape(B, K, T),
             valid=valid, num=valid.sum(1, dtype=torch.int32))
+
+    @torch.inference_mode()
+    def extract_features(self, images, img_h, img_w, *,
+                         final_nms_thresh=0.4, max_boxes=100):
+        """Boxes and codes of the top regions after a final NMS (the
+        reference's extractFeatures: 100 boxes at 0.4).
+
+        Returns final xcycwh boxes (B, max_boxes, 4), not clipped, their
+        codes (B, max_boxes, fc_dim) and `valid` (B, max_boxes); padded
+        slots repeat the top box.
+        """
+        valid, codes, scores, boxes = self._detect(images, img_h, img_w)
+        idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores, final_nms_thresh,
+                         max_boxes, valid=valid)
+        return gather_rows(boxes, idx), gather_rows(codes, idx), valid

@@ -1,9 +1,9 @@
-"""Image-conditioned LSTM language model: teacher-forced training and
-greedy decode.
+"""Image-conditioned LSTM language model: teacher-forced training, greedy
+decode and beam search.
 
 Twin of `densecap_tpu/models/lstm.py` (`_lstm_step`, `_embed`,
 `_encode_image`, `_project`, `forward_train`, `get_target`,
-`_greedy_decode`). Tokens: words 1..V,
+`_greedy_decode`, `beamsearch`). Tokens: words 1..V,
 START = END = V+1; the embedding has V+2 rows (token t -> row t-1) and
 the projection scores V+1 classes (class j <-> token j+1). The cell is
 written out by hand with torch-rnn's gate order (i, f, o, g), so
@@ -107,6 +107,84 @@ class LanguageModel(nn.Module):
             lps[:, t] = torch.where(done, 0.0, lp)
             done = done | (tok == END)
         return seq, lps
+
+    def beamsearch(self, vectors, seq_length, beam_size, early_exit=True):
+        """Beam search over (P, D) RoI codes (twin of
+        `densecap_tpu.models.lstm.beamsearch`).
+
+        Returns tokens (P, T) int32, the winning beam's per-step logprobs
+        (P, T) f32 and its score (P,) f32, the sum of those logprobs.
+        The B beams of every row are folded into the batch, so each step
+        runs on (P * B, .) matrices. As in the reference, a finished beam
+        scores 0 (not -inf) for every word, and its words are 0..B-1.
+        With `early_exit` the loop stops once every beam of every row
+        holds END (one host read per step). A row's tokens after its
+        first END are END and its logprobs there 0, so both loop forms
+        give the same output, and so does one search over a whole batch
+        against one search per image: steps after a row finishes only
+        rewrite positions past its END.
+        """
+        P, T, B = vectors.shape[0], int(seq_length), int(beam_size)
+        END = self.vocab_size + 1
+        dev = vectors.device
+        H = self.Wh.shape[0]
+        zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
+        h, c = self.lstm_step(zeros, zeros, self.encode_image(vectors))
+        h, c = self.lstm_step(
+            h, c, self.embed(torch.full((P,), END, device=dev)))
+        beam_lp, idx0 = torch.log_softmax(self.project(h), -1).topk(B, -1)
+        beams = torch.ones((P, B, T), dtype=torch.long, device=dev)
+        beams[:, :, 0] = idx0 + 1
+        lp_hist = torch.zeros((P, B, T), dtype=torch.float32, device=dev)
+        lp_hist[:, :, 0] = beam_lp
+        h = h.repeat_interleave(B, 0)
+        c = c.repeat_interleave(B, 0)
+        row0 = B * torch.arange(P, device=dev)[:, None]
+        spare_words = torch.arange(B, device=dev)
+        for t in range(1, T):
+            finished = (beams == END).any(2)                  # (P, B)
+            if early_exit and bool(finished.all()):
+                break
+            words = beams[:, :, t - 1].reshape(-1)
+            h, c = self.lstm_step(h, c, self.embed(words))
+            scores = self.project(h)                          # (P*B, V+1)
+            # Per-beam top-k of the raw logits; log_softmax is a shift per
+            # row, applied to the k survivors only. Ties among one row's
+            # logits are accidental, so torch.topk's order is enough here.
+            top_raw, top_words = scores.topk(B, -1)
+            top_lp = (top_raw - torch.logsumexp(scores, -1, keepdim=True)
+                      ).reshape(P, B, B)
+            top_words = top_words.reshape(P, B, B)
+            alive = ~finished[:, :, None]
+            top_lp = torch.where(alive, top_lp, 0.0)
+            top_words = torch.where(alive, top_words, spare_words)
+            cand = (beam_lp[:, :, None] + top_lp).reshape(P, B * B)
+            # Every finished beam offers B equal candidates, so ties here
+            # are systematic. lax.top_k takes the lower index first among
+            # ties and torch.topk promises no order, so this top-k is a
+            # stable ascending sort of the negated candidates.
+            neg_lp, flat = torch.sort(-cand, dim=1, stable=True)
+            new_lp, flat = -neg_lp[:, :B], flat[:, :B]
+            src = flat // B                                   # (P, B)
+            take = src[:, :, None].expand(P, B, T)
+            beams = beams.gather(1, take)
+            beams[:, :, t] = top_words.reshape(P, B * B).gather(1, flat) + 1
+            lp_hist = lp_hist.gather(1, take)
+            lp_hist[:, :, t] = new_lp - beam_lp.gather(1, src)
+            beam_lp = new_lp
+            rows = (src + row0).reshape(-1)
+            h, c = h[rows], c[rows]
+        best = beam_lp.argmax(1)
+        score = beam_lp.gather(1, best[:, None])[:, 0]
+        pick = best[:, None, None].expand(P, 1, T)
+        seq = beams.gather(1, pick)[:, 0]
+        lps = lp_hist.gather(1, pick)[:, 0]
+        is_end = seq == END
+        first_end = is_end.to(torch.int32).argmax(1, keepdim=True)
+        after = is_end.any(1, keepdim=True) & (
+            torch.arange(T, device=dev)[None] > first_end)
+        return (torch.where(after, END, seq).to(torch.int32),
+                torch.where(after, 0.0, lps), score)
 
 
 def get_target(gt_seq, vocab_size):

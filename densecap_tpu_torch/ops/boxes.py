@@ -1,12 +1,14 @@
-"""Box geometry: coordinate conversions, pascal IoU and clipping.
+"""Box geometry: coordinate conversions, pascal IoU, clipping and the
+evaluator's merge.
 
 Twin of `densecap_tpu/ops/boxes.py`. Boxes are `(..., 4)` in the
-reference's 1-indexed pixel convention; every function broadcasts over
-leading dimensions.
+reference's 1-indexed pixel convention; every torch function broadcasts
+over leading dimensions.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,6 +23,13 @@ def x1y1x2y2_to_xcycwh(boxes):
     x0, y0, x1, y1 = boxes.unbind(-1)
     return torch.stack([(x0 + x1) / 2.0, (y0 + y1) / 2.0, x1 - x0, y1 - y0],
                        dim=-1)
+
+
+def xcycwh_to_xywh(boxes):
+    """(xc, yc, w, h) -> (x, y, w, h): the corners of `xcycwh_to_x1y1x2y2`,
+    then width x2 - x1 + 1 (the JAX package's composition, op for op)."""
+    x0, y0, x1, y1 = xcycwh_to_x1y1x2y2(boxes).unbind(-1)
+    return torch.stack([x0, y0, x1 - x0 + 1, y1 - y0 + 1], dim=-1)
 
 
 def iou_cwh(boxes1, boxes2):
@@ -88,3 +97,39 @@ def clip_boxes(boxes, x_max, y_max):
     valid = (x1 > x0) & (y1 > y0)
     clipped = torch.stack([x0, y0, x1, y1], dim=-1)
     return x1y1x2y2_to_xcycwh(clipped), valid
+
+
+def merge_boxes(boxes, thr):
+    """Greedy grouping of (N, 4) x1y1x2y2 boxes by pascal IoU >= thr, in
+    numpy (the evaluator's merge of overlapping ground truth).
+
+    Twin of `densecap_tpu.ops.boxes.merge_boxes`: repeatedly take the
+    box with the most partners at IoU >= thr and absorb them all.
+    Returns a list of 0-indexed index arrays. The IoU is computed in
+    float64 with the +1 convention; the JAX version computes it through
+    `jnp`, which is float64 only with x64 enabled (as in its tests) and
+    float32 otherwise.
+    """
+    assert thr > 0
+    b = np.asarray(boxes, dtype=np.float64)
+    if len(b) == 0:
+        return []
+    area = (b[:, 2] - b[:, 0] + 1.0) * (b[:, 3] - b[:, 1] + 1.0)
+    iw = np.maximum(np.minimum(b[:, None, 2], b[None, :, 2])
+                    - np.maximum(b[:, None, 0], b[None, :, 0]) + 1.0, 0.0)
+    ih = np.maximum(np.minimum(b[:, None, 3], b[None, :, 3])
+                    - np.maximum(b[:, None, 1], b[None, :, 1]) + 1.0, 0.0)
+    inter = iw * ih
+    D = inter / (area[:, None] + area[None, :] - inter)
+    groups = []
+    while True:
+        good = D >= thr
+        good_sum = good.sum(axis=0)
+        top = int(np.argmax(good_sum))
+        if good_sum[top] == 0:
+            break
+        members = np.nonzero(good[top])[0]
+        groups.append(members)
+        D[members, :] = 0
+        D[:, members] = 0
+    return groups

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.checkpoint import to_torch
-from ..utils.image import normalize_uint8_images, preprocess_for_model_uint8
+from ..utils.image import preprocess_for_model_uint8, to_model_input
 from ..utils.text import decode_sequence
 
 
@@ -134,12 +134,8 @@ class InferenceEngine:
     def _run(self, canvases, hs, ws):
         """Model on one batch -> one packed (B, K, 4 + 1 + T + 1) f32
         device tensor: boxes, score, tokens, valid."""
-        dev = self.device
-        ims = torch.from_numpy(np.stack(canvases)).to(dev)
-        h = torch.tensor(hs, dtype=torch.float32, device=dev)
-        w = torch.tensor(ws, dtype=torch.float32, device=dev)
         out = self.model.forward_test_batch(
-            normalize_uint8_images(ims, h, w), h, w)
+            *to_model_input(canvases, hs, ws, self.device))
         # tokens <= V + 1 are exact in f32
         return torch.cat([out.boxes, out.scores[..., None],
                           out.captions.float(),

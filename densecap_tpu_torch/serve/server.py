@@ -22,8 +22,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from ..config import DenseCapConfig
-from ..utils.checkpoint import load_params
+from ..utils.checkpoint import load_checkpoint
 from .engine import InferenceEngine
 
 # the browser client is shared with the JAX package's server
@@ -121,13 +120,7 @@ def main(argv=None):
     p.add_argument("--keyfile", default="")
     args = p.parse_args(argv)
 
-    params, extra = load_params(args.checkpoint)
-    meta = json.loads(str(extra["meta"])) if "meta" in extra else {}
-    if "config" in meta:
-        cfg = DenseCapConfig.from_json(meta["config"])
-    else:
-        cfg = DenseCapConfig(vocab_size=int(meta.get("vocab_size", 10000)),
-                             seq_length=int(meta.get("seq_length", 15)))
+    params, meta, cfg = load_checkpoint(args.checkpoint)
     cfg = cfg.replace(image_size=args.image_size,
                       test_max_proposals=args.num_proposals,
                       test_pre_nms_topk=args.pre_nms_topk)

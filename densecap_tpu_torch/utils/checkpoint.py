@@ -1,7 +1,9 @@
 """The weight bridge: numpy parameter trees in, the port's module out.
 
   * `load_params(path)`: numpy twin of `densecap_tpu.utils.checkpoint
-    .load_params` (`/`-joined keys, `__extra__/` entries).
+    .load_params` (`/`-joined keys, `__extra__/` entries), and
+    `load_checkpoint(path)`, which also reads the `meta` entry and the
+    config in it, as the CLIs and the server do.
   * `init_params(cfg, seed)`: a numpy tree with the names, shapes and
     init laws of `densecap_tpu.models.densecap.init_params`, from a
     seeded `numpy.random.Generator` (not JAX's random values).
@@ -22,11 +24,13 @@ Layouts: JAX conv kernels are HWIO and become OIHW; linear weights stay
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 import torch
 
+from ..config import DenseCapConfig
 from ..models.densecap import DenseCap
 from ..models.lstm import LanguageModel
 from ..models.rpn import RPN
@@ -74,6 +78,25 @@ def load_params(path):
             else:
                 flat[k] = data[k]
     return _unflatten(flat), extra
+
+
+def load_checkpoint(path, vocab_size=10000, seq_length=15):
+    """An `.npz` checkpoint -> (params, meta, cfg).
+
+    `meta` is the JSON under `__extra__/meta` ({} without one). The
+    config is `meta["config"]` when present; otherwise the defaults with
+    the vocabulary size and caption length of `meta`, or else of the
+    arguments.
+    """
+    params, extra = load_params(path)
+    meta = json.loads(str(extra["meta"])) if "meta" in extra else {}
+    if "config" in meta:
+        cfg = DenseCapConfig.from_json(meta["config"])
+    else:
+        cfg = DenseCapConfig(
+            vocab_size=int(meta.get("vocab_size", vocab_size)),
+            seq_length=int(meta.get("seq_length", seq_length)))
+    return params, meta, cfg
 
 
 def init_params(cfg, seed=0):

@@ -1,10 +1,14 @@
-"""Frame preprocessing for the model (twin of densecap_tpu/utils/image.py
-`preprocess_for_model_uint8` and densecap_tpu/parallel/train_step.py
+"""Frame loading and preprocessing for the model (twin of
+densecap_tpu/utils/image.py `load_image`, `preprocess_for_model_uint8`,
+`parse_buckets`, `pick_bucket` and densecap_tpu/parallel/train_step.py
 `normalize_uint8_images`).
 
 The host scales a frame so its long edge is `image_size` and places it,
 BGR-ordered and still uint8, at the top left of a square canvas; the
-device subtracts the VGG mean and zeroes the padding.
+device subtracts the VGG mean and zeroes the padding. uint8 to f32 is
+exact, so the result is bit-equal to the JAX package's f32 host path
+(`preprocess_for_model`). A canvas may be cropped to a smaller bucket
+that still holds the frame: the model's outputs do not change.
 """
 
 from __future__ import annotations
@@ -13,6 +17,14 @@ import numpy as np
 import torch
 
 from ..config import VGG_MEAN_BGR
+
+
+def load_image(path):
+    """An image file -> (H, W, 3) uint8 RGB."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
 def preprocess_for_model_uint8(rgb, image_size=720):
@@ -46,3 +58,41 @@ def normalize_uint8_images(images, heights, widths):
     col_ok = torch.arange(W, device=dev)[None, :] < widths[:, None]
     mask = (row_ok[:, :, None] & col_ok[:, None, :])[..., None]
     return torch.where(mask, x, 0.0)
+
+
+def to_model_input(canvases, heights, widths, device):
+    """B uint8 canvases (a list of (H, W, 3) or one (B, H, W, 3) array)
+    and their true sizes -> the model's inputs on `device`: normalized
+    f32 images (B, H, W, 3), heights (B,) and widths (B,) f32."""
+    h = torch.tensor(heights, dtype=torch.float32, device=device)
+    w = torch.tensor(widths, dtype=torch.float32, device=device)
+    ims = torch.from_numpy(np.stack(canvases)).to(device)
+    return normalize_uint8_images(ims, h, w), h, w
+
+
+def parse_buckets(spec, image_size):
+    """'720x544,544x720' -> [(h, w), ...] sorted by area, with the
+    (image_size, image_size) square always last. Dims must be multiples
+    of 16 (the feature stride) and at most image_size."""
+    buckets = set()
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        h, w = (int(v) for v in part.lower().split("x"))
+        if h % 16 or w % 16:
+            raise ValueError(f"bucket {part}: dims must be multiples of 16")
+        if h > image_size or w > image_size:
+            raise ValueError(f"bucket {part} exceeds image_size {image_size}")
+        buckets.add((h, w))
+    buckets.add((image_size, image_size))
+    return sorted(buckets, key=lambda b: b[0] * b[1])
+
+
+def pick_bucket(h, w, buckets):
+    """The smallest-area bucket of `parse_buckets` holding an (h, w)
+    frame; the square when none does."""
+    for bh, bw in buckets:
+        if h <= bh and w <= bw:
+            return bh, bw
+    return buckets[-1]

@@ -17,6 +17,13 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.ops.sampler", "densecap_tpu_torch.ops.losses",
            "densecap_tpu_torch.parallel.train_step",
            "densecap_tpu_torch.data.loader", "densecap_tpu_torch.cli.train",
+           "densecap_tpu_torch.eval.meteor",
+           "densecap_tpu_torch.eval.evaluator",
+           "densecap_tpu_torch.eval.eval_split",
+           "densecap_tpu_torch.cli.run_model",
+           "densecap_tpu_torch.cli.extract_features",
+           "densecap_tpu_torch.cli.evaluate_model",
+           "densecap_tpu_torch.utils.vis",
            "chip_smoke"]
 
 

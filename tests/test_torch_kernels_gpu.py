@@ -69,6 +69,23 @@ def test_nms_kernel_matches_plain(dev, presorted, clustered):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
+def test_nms_kernel_matches_plain_extract_features_shape(dev):
+    """extract_features' final NMS: 1000 unsorted boxes -> 100 at 0.4,
+    with a valid mask, so the scan stops at 100 survivors."""
+    rng = np.random.default_rng(7)
+    B, N, K = 4, 1000, 100
+    boxes = xcycwh_to_x1y1x2y2(torch.from_numpy(_boxes(rng, B, N)).to(dev))
+    scores = torch.from_numpy(rng.normal(0, 3, (B, N)).astype(np.float32)
+                              ).to(dev)
+    valid = torch.from_numpy(rng.uniform(0, 1, (B, N)) > 0.1).to(dev)
+    build.reset_launches()
+    ki, kv = nms_mod.nms(boxes, scores, 0.4, K, valid=valid)
+    assert build.launches == dict(NONE, nms=1)
+    pi, pv = nms_mod.nms_plain(boxes, scores, 0.4, K, valid=valid)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert int(kv.sum()) == B * K
+
+
 def test_roi_align_kernel_matches_plain(dev):
     rng = np.random.default_rng(0)
     feats = torch.from_numpy(

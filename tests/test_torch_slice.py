@@ -85,8 +85,16 @@ def test_canvas_equals_cropped(setup):
 
 
 def test_beam_search_not_ported(setup):
+    """Beam search, which this slice once lacked, now runs: a beam of 1
+    gives the greedy captions, and a beam of 3 tokens in [1, V + 1]
+    (`test_torch_beamsearch.py` holds it against JAX)."""
     _, np_params, ims = setup
     model = to_torch(np_params, PCFG, "cpu")
-    with pytest.raises(NotImplementedError):
-        model.forward_test_batch(torch.from_numpy(ims), torch.from_numpy(HS),
-                                 torch.from_numpy(WS), use_beam=3)
+    args = (torch.from_numpy(ims), torch.from_numpy(HS), torch.from_numpy(WS))
+    greedy = model.forward_test_batch(*args)
+    beam1 = model.forward_test_batch(*args, use_beam=1)
+    assert torch.equal(beam1.captions, greedy.captions)
+    np.testing.assert_allclose(beam1.caption_logprobs.numpy(),
+                               greedy.caption_logprobs.numpy(), atol=1e-5)
+    caps = model.forward_test_batch(*args, use_beam=3).captions
+    assert int(caps.min()) >= 1 and int(caps.max()) <= PCFG.vocab_size + 1
