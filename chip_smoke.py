@@ -12,8 +12,15 @@ its result on its own line; any failure raises and exits non-zero:
      SASS of K3's bf16 kernel, which must not be 0;
   3. K1 (NMS) against its plain PyTorch version at the serving shapes and
      at extract_features' (1000 unsorted -> 100 at 0.4), picks required
-     identical;
-  4. K2 (RoI align) against its plain version, max abs error <= 1e-5;
+     identical; per shape the C launch alone ("kernel_ms": on inputs the
+     wrapper prepared beforehand, 20 launches in a CUDA graph, so no host
+     time), one call through the wrapper ("ms"), the
+     plain version, the bound from this run's IoU tests and bytes, and
+     the tiles walked in the longest image;
+  4. K2 (RoI align) against its plain version at the inference shape
+     (8 x 1000 boxes) and the training shape (8 x 384), max abs error
+     <= 1e-5; the same times and bound as K1, and F.grid_sample on the
+     same positions (within 1e-4 of plain) as the library call;
   5. K3 (fused conv+ReLU+mask+pool) at trunk1's conv1_2 and conv2_2
      shapes in bf16: its max abs error against an f32 oracle no more
      than 1.25x the plain version's; in f32 within rtol 1e-4 of plain;
@@ -22,7 +29,8 @@ its result on its own line; any failure raises and exits non-zero:
      cuDNN, printed only;
   6. K2b (RoI-align backward) at the training shape against plain
      autograd: d feats within 1e-5 and d boxes within 1e-4 of the
-     reference gradient's largest entry;
+     reference gradient's largest entry; grid_sample's backward as the
+     library call, its d feats within 1e-5;
   7. the full-width engine (VGG-16, fc 4096, vocab 10 000, 720 px canvas,
      1000 proposals, bf16, random weights from seed 0): 32 concurrent
      720x540 frames at batch 8, then frames at batch 1; K1 and K2 must
@@ -55,9 +63,14 @@ Phases 7 and 9-12 each drive their path with every launch count set to
 0 just before and read just after; K1 and K2 must launch on each.
 
 The last lines are a JSON object describing each kernel and
-{"ok": true, "device": {...}}. K3's entry gives the sum of its two stages
-in "ms" / "plain_ms" (its cost per trunk1 forward) and each stage under
-"shapes".
+{"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
+"bound_ms" with "bound_by" (bytes or operations, against the H100 SXM
+data sheet's peaks) and "library_ms" with a "library_note": for K2 and
+K2b one F.grid_sample call (and its backward) on K2's clamped sample
+positions, held against the plain version; null for K1 and K3, which no
+single PyTorch call computes. K1 and K2 also give "kernel_ms". K3's entry gives the sum of its two stages in "ms" /
+"plain_ms" / "bound_ms" (its cost per trunk1 forward) and each stage
+under "shapes".
 """
 
 from __future__ import annotations
@@ -95,8 +108,19 @@ from densecap_tpu_torch.utils.checkpoint import (from_torch, init_params,
                                                  save_params, to_torch)
 
 B = 8
-H100_BF16_TFLOPS = 989.0  # dense bf16 peak, NVIDIA's H100 SXM data sheet
+# NVIDIA's H100 SXM data sheet: dense bf16 peak, f32 outside the tensor
+# cores, HBM3 bandwidth. A kernel's bound_ms is the larger of its bytes
+# (each input read once, each output written once) over HBM_BYTES_S and
+# its operations over the peak of their type.
+H100_BF16_TFLOPS = 989.0
+H100_F32_TFLOPS = 67.0
+HBM_BYTES_S = 3.35e12
+NMS_OPS_PER_PAIR = 16    # f32 operations of one pascal IoU test
 ROI_TOL = 1e-5
+# grid_sample (K2's library call) takes positions normalised to [-1, 1]:
+# the round trip rounds a position on a 45-cell map by ~1e-5 cells, which
+# moves a sample by that much times a feature difference of a few units
+ROI_LIBRARY_TOL = 1e-4
 CONV_POOL_RATIO = 1.25   # K3 error vs f32 oracle, at most this x plain's
 CONV_POOL_F32_RTOL = 1e-4
 BWD_FEATS_TOL = 1e-5     # K2b, relative to the largest reference entry
@@ -120,6 +144,48 @@ def cuda_ms(fn, runs=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=20, runs=10):
+    """Median milliseconds of one `fn()` on the card alone: `reps` calls
+    captured in a CUDA graph and replayed between two CUDA events, so the
+    host's time to launch them is out of the window."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, runs=runs) / reps
+
+
+def bound_ms(nbytes, ops, tflops):
+    """(least time on the card in ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / (tflops * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nms_work(order, svalid, idx, valid, k):
+    """What this run's data needs of greedy NMS: the IoU tests of every
+    visited valid box against the boxes kept before it (summed over the
+    images), and the 64-box tiles K1 walks in the longest image. A box is
+    visited up to the max_out-th keep, or to N."""
+    order, sv = order.cpu().numpy(), svalid.cpu().numpy().astype(bool)
+    idx, valid = idx.cpu().numpy(), valid.cpu().numpy()
+    pairs = tiles = 0
+    for b in range(order.shape[0]):
+        pos = np.empty(order.shape[1], np.int64)
+        pos[order[b]] = np.arange(order.shape[1])
+        kept_pos = pos[idx[b][valid[b]]]
+        kept = np.zeros(order.shape[1], np.int64)
+        kept[kept_pos] = 1
+        visited = (int(kept_pos.max()) + 1 if len(kept_pos) == k
+                   else order.shape[1])
+        before = np.cumsum(kept) - kept
+        pairs += int(before[:visited][sv[b, :visited]].sum())
+        tiles = max(tiles, -(-visited // 64))
+    return pairs, tiles
 
 
 def random_boxes(rng, n, size=720.0, clustered=False):
@@ -171,7 +237,9 @@ def phase_build():
         raise AssertionError(f"K3's bf16 kernel issues no wgmma: {counts}")
 
 
-def phase_nms(dev):
+def nms_cases():
+    """K1's shapes: (name, xcycwh boxes, scores, valid, thresh, max_out,
+    presorted) as numpy, B images each, from seed 1."""
     rng = np.random.default_rng(1)
     cases = []
     # RPN shape: 6000 presorted -> 1000 at 0.7, invalid tail and holes
@@ -194,6 +262,11 @@ def phase_nms(dev):
     cases.append(("extract_features 1000->100 @0.4", random_boxes(rng, 1000),
                   rng.normal(0, 3, (B, 1000)).astype(np.float32),
                   rng.uniform(0, 1, (B, 1000)) > 0.1, 0.4, 100, False))
+    return cases
+
+
+def phase_nms(dev):
+    cases = nms_cases()
     shapes, err = [], 0.0
     for name, bx, sc, va, thr, k, pre in cases:
         boxes = xcycwh_to_x1y1x2y2(torch.from_numpy(bx).to(dev))
@@ -209,39 +282,135 @@ def phase_nms(dev):
         same = bool(torch.equal(ki, pi) and torch.equal(kv, pv))
         err = max(err, float((ki - pi).abs().max()))
         kept = kv.sum(1).tolist()
+        # the C launch alone, on inputs the wrapper prepared beforehand
+        order, sboxes, svalid, keep, count = nms_mod.prepare_cuda(
+            boxes, scores_t, k, valid=valid_t, presorted=pre)
+        kern_ms = graph_ms(lambda: nms_mod.launch_cuda(sboxes, svalid, thr,
+                                                       keep, count))
         k_ms = cuda_ms(lambda: run(nms_mod.nms_cuda))
         p_ms = cuda_ms(lambda: run(nms_mod.nms_plain))
+        pairs, tiles = nms_work(order, svalid, pi, pv, k)
+        n = bx.shape[1]
+        b_ms, b_by = bound_ms(B * n * (16 + 1) + B * (k + 1) * 4,
+                              pairs * NMS_OPS_PER_PAIR, H100_F32_TFLOPS)
         print(f"[K1 nms] {name}: identical={same} kept/img={kept} "
-              f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
+              f"kernel alone {kern_ms:.4f} ms, through the wrapper "
+              f"{k_ms:.4f} ms, plain {p_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}: {pairs} IoU tests, {B * n * 17 / 1e6:.2f} MB in) "
+              f"= {b_ms / kern_ms:.1%} of the kernel; tile chain {tiles} "
+              f"tiles in the longest image, {kern_ms / tiles * 1e3:.2f} "
+              f"us per tile")
         if not same:
             raise AssertionError(f"K1 picks differ from plain in {name}")
-        shapes.append({"shape": f"B={B} {name}", "ms": k_ms, "plain_ms": p_ms})
-    return {"max_abs_err": err, "ms": shapes[0]["ms"],
-            "plain_ms": shapes[0]["plain_ms"], "shapes": shapes}
+        shapes.append({"shape": f"B={B} {name}", "kernel_ms": kern_ms,
+                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "iou_tests": pairs, "tiles": tiles})
+    head = shapes[0]
+    return {"max_abs_err": err, "kernel_ms": head["kernel_ms"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes greedy NMS "
+                            "(torchvision, whose ops.nms would, is not "
+                            "installed)",
+            "shapes": shapes}
+
+
+def roi_library(feats, yf, xf):
+    """K2's function as one F.grid_sample call, on K2's prepared positions
+    (`roi_align.prepare_cuda`) -> (call(x, grid), as_k2(out) giving its
+    output as (B, K, out_h, out_w, C), the NCHW view x of `feats`, grid).
+    The grid holds every box of an image, (B, K * out_h, out_w, 2) with
+    align_corners=True; the positions are already clamped to each image's
+    extent, so the taps are K2's (a tap one past the extent gets weight
+    0)."""
+    Bn, Hf, Wf, C = feats.shape
+    out_h, out_w = yf.shape[1], xf.shape[1]
+    K = yf.shape[0] // Bn
+    gy = (yf * (2.0 / (Hf - 1)) - 1.0).reshape(Bn, K, out_h, 1)
+    gx = (xf * (2.0 / (Wf - 1)) - 1.0).reshape(Bn, K, 1, out_w)
+    grid = torch.stack(torch.broadcast_tensors(gx, gy), -1).reshape(
+        Bn, K * out_h, out_w, 2)
+    inp = feats.permute(0, 3, 1, 2)  # NCHW view of the channels-last map
+
+    def call(x, g):
+        return torch.nn.functional.grid_sample(
+            x, g, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    def as_k2(out):
+        return out.reshape(Bn, C, K, out_h, out_w).permute(0, 2, 3, 4, 1)
+
+    return call, as_k2, inp, grid
+
+
+def roi_bytes(feats, rois, out_hw=(7, 7)):
+    """K2's bytes: the feature map and the sample positions, box index and
+    extents read once, the (rois, 7, 7, C) f32 output written once."""
+    C = feats.shape[-1]
+    return (feats.numel() * 4 + rois * (sum(out_hw) + 3) * 4
+            + rois * out_hw[0] * out_hw[1] * C * 4)
 
 
 def phase_roi(dev):
+    """K2 at the inference shape (8 x 1000 boxes) and the training shape
+    (8 x 384), on (8, 45, 45, 512) f32."""
     rng = np.random.default_rng(2)
     feats = torch.from_numpy(
         rng.standard_normal((B, 45, 45, 512), dtype=np.float32)).to(dev)
     img_h = torch.tensor(IMG_H, dtype=torch.float32, device=dev)
     img_w = torch.tensor(IMG_W, dtype=torch.float32, device=dev)
     fh, fw = feat_extent(img_h, img_w)
-    bx = random_boxes(rng, 1000)
-    bx[..., 2:] *= 1.5  # some boxes reach past the image edge
-    boxes = torch.from_numpy(bx).to(dev)
-    args = (feats, boxes, img_h, img_w, fh, fw, 7, 7)
-    got = roi_mod.roi_align_cuda(*args)
-    ref = roi_mod.roi_align_plain(*args)
-    err = float((got - ref).abs().max())
-    k_ms = cuda_ms(lambda: roi_mod.roi_align_cuda(*args))
-    p_ms = cuda_ms(lambda: roi_mod.roi_align_plain(*args))
-    print(f"[K2 roi_align] 8x1000 boxes on (8,45,45,512) f32: max_abs_err "
-          f"{err:.3e} (tol {ROI_TOL}) kernel {k_ms:.3f} ms plain "
-          f"{p_ms:.3f} ms")
-    if not err <= ROI_TOL:
-        raise AssertionError(f"K2 max abs error {err} > {ROI_TOL}")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+    shapes, err = [], 0.0
+    for k in (1000, 384):
+        bx = random_boxes(rng, k)
+        bx[..., 2:] *= 1.5  # some boxes reach past the image edge
+        boxes = torch.from_numpy(bx).to(dev)
+        args = (feats, boxes, img_h, img_w, fh, fw, 7, 7)
+        got = roi_mod.roi_align_cuda(*args)
+        ref = roi_mod.roi_align_plain(*args)
+        e = float((got - ref).abs().max())
+        del got
+        # the C launch alone, on inputs the wrapper prepared beforehand
+        prep = roi_mod.prepare_cuda(*args)
+        lib, as_k2, inp, grid = roi_library(feats, prep[0], prep[1])
+        lib_e = float((as_k2(lib(inp, grid)) - ref).abs().max())
+        del ref
+        out = torch.empty((B * k, 7, 7, 512), device=dev)
+        kern_ms = graph_ms(lambda: roi_mod.launch_fwd(feats, *prep, out))
+        del out
+        k_ms = cuda_ms(lambda: roi_mod.roi_align_cuda(*args))
+        p_ms = cuda_ms(lambda: roi_mod.roi_align_plain(*args))
+        l_ms = cuda_ms(lambda: lib(inp, grid))
+        del grid
+        nbytes = roi_bytes(feats, B * k)
+        # 3 lerps of 4 operations per output element
+        b_ms, b_by = bound_ms(nbytes, B * k * 49 * 512 * 12, H100_F32_TFLOPS)
+        print(f"[K2 roi_align] {B}x{k} boxes on (8,45,45,512) f32: max_abs_err "
+              f"{e:.3e} (tol {ROI_TOL}); kernel alone {kern_ms:.4f} ms "
+              f"({nbytes / kern_ms / 1e9:.2f} TB/s), through the wrapper "
+              f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, grid_sample {l_ms:.4f} "
+              f"ms (max abs err vs plain {lib_e:.3e}, tol {ROI_LIBRARY_TOL}); "
+              f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.0f} MB) = "
+              f"{b_ms / kern_ms:.1%} of the kernel")
+        if not e <= ROI_TOL:
+            raise AssertionError(f"K2 max abs error {e} > {ROI_TOL}")
+        if not lib_e <= ROI_LIBRARY_TOL:
+            raise AssertionError(f"grid_sample differs from plain K2 by "
+                                 f"{lib_e} > {ROI_LIBRARY_TOL}")
+        err = max(err, e)
+        shapes.append({"shape": f"{B}x{k} boxes, (8,45,45,512) f32",
+                       "kernel_ms": kern_ms, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by})
+    head = shapes[0]
+    return {"max_abs_err": err, "kernel_ms": head["kernel_ms"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library_note": "F.grid_sample, align_corners=True, on K2's "
+                            "clamped positions as one (B, K*7, 7, 2) grid; "
+                            "NCHW output",
+            "shapes": shapes}
+
 
 
 def phase_conv_pool(dev):
@@ -278,6 +447,10 @@ def phase_conv_pool(dev):
             k_ms = cuda_ms(lambda: cp.conv_relu_pool_cuda(xb, wb, bb, eh, ew))
             p_ms = cuda_ms(lambda: cp.conv_relu_pool_plain(xb, wb, bb, eh, ew))
         tflops = 2 * 9 * C * C * B * S * S / k_ms / 1e9
+        # bf16 input and pooled output once, weights and bias once
+        b_ms, b_by = bound_ms(
+            (B * S * S * C + B * (S // 2) ** 2 * C + 9 * C * C + C) * 2,
+            2 * 9 * C * C * B * S * S, H100_BF16_TFLOPS)
         print(f"[K3 conv_pool] {name} ({B},{S},{S},{C}) bf16: max abs err vs "
               f"f32 oracle kernel {k_err:.4e} plain {p_err:.4e} (ratio "
               f"{k_err / p_err:.3f}, limit {CONV_POOL_RATIO}); f32 kernel vs "
@@ -285,15 +458,24 @@ def phase_conv_pool(dev):
               f"{f32_ok}; bf16 kernel vs plain max abs {kp_err:.4e}, "
               f"{equal:.5%} bit-equal; kernel {k_ms:.3f} ms = {tflops:.1f} "
               f"TFLOP/s ({tflops / H100_BF16_TFLOPS:.1%} of the bf16 peak), "
-              f"plain {p_ms:.3f} ms")
+              f"plain {p_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}) = "
+              f"{b_ms / k_ms:.1%} of the kernel")
         if not (k_err <= CONV_POOL_RATIO * p_err and f32_ok):
             raise AssertionError(f"K3 disagrees with plain at {name}")
         worst = max(worst, kp_err)
         shapes.append({"shape": f"{name} ({B},{S},{S},{C}) bf16",
-                       "ms": k_ms, "plain_ms": p_ms, "tflops": tflops})
+                       "ms": k_ms, "plain_ms": p_ms, "tflops": tflops,
+                       "bound_ms": b_ms, "bound_by": b_by})
     phase_trunk1(dev)
     return {"max_abs_err": worst, "ms": sum(s["ms"] for s in shapes),
-            "plain_ms": sum(s["plain_ms"] for s in shapes), "shapes": shapes}
+            "plain_ms": sum(s["plain_ms"] for s in shapes),
+            "bound_ms": sum(s["bound_ms"] for s in shapes),
+            "bound_by": shapes[0]["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes it: cuDNN's "
+                            "conv, the bias, ReLU, the extent mask and the "
+                            "max pool are separate calls ([K3 trunk1] times "
+                            "trunk1 that way)",
+            "shapes": shapes}
 
 
 def phase_trunk1(dev):
@@ -350,26 +532,62 @@ def phase_roi_bwd(dev):
         return lambda: torch.autograd.grad(out, inputs, gout,
                                            retain_graph=True)
 
+    def library_graph():
+        """grid_sample's backward to the map and the grid (roi_library):
+        the same scatter as K2b's d feats; its grid gradient is per sample,
+        and at a position clamped to the extent's last cell it takes the
+        one-sided slope toward the next cell, where autodiff of the clamped
+        taps gives 0, so only d feats is compared."""
+        yf, xf = roi_mod.prepare_cuda(feats, boxes, img_h, img_w, fh, fw)[:2]
+        lib, _, inp, grid = roi_library(feats, yf, xf)
+        x = inp.detach().clone().requires_grad_()
+        g = grid.requires_grad_()
+        out = lib(x, g)
+        gl = gout.permute(0, 4, 1, 2, 3).reshape(out.shape)
+        return lambda: torch.autograd.grad(out, [x, g], gl, retain_graph=True)
+
     kf, kb = graph(roi_mod.roi_align_cuda, True)()
     pf, pb = graph(roi_mod.roi_align_plain, True)()
     f_abs = float((kf - pf).abs().max())
     b_abs = float((kb - pb).abs().max())
     f_err = f_abs / float(pf.abs().max())
     b_err = b_abs / float(pb.abs().max())
-    del kf, pf
+    del kf
+    lib_bwd = library_graph()
+    lf = lib_bwd()[0].permute(0, 2, 3, 1)
+    lib_err = float((lf - pf).abs().max()) / float(pf.abs().max())
+    del pf, lf
     k_ms = cuda_ms(graph(roi_mod.roi_align_cuda, True))
     p_ms = cuda_ms(graph(roi_mod.roi_align_plain, True))
+    l_ms = cuda_ms(lib_bwd)
+    del lib_bwd
     kc_ms = cuda_ms(graph(roi_mod.roi_align_cuda, False))
     pc_ms = cuda_ms(graph(roi_mod.roi_align_plain, False))
+    # g and the features read once, d feats and the position gradients
+    # written once; ~20 f32 operations per element of g (scatter weights
+    # and both position sums)
+    rois = B * 384
+    b_ms, b_by = bound_ms(gout.numel() * 4 + 2 * feats.numel() * 4
+                          + rois * 14 * 4 * 2, gout.numel() * 20,
+                          H100_F32_TFLOPS)
     print(f"[K2b roi_align_bwd] 8x384 boxes on (8,45,45,512) f32: d feats "
           f"err {f_err:.3e} (tol {BWD_FEATS_TOL}), d boxes err {b_err:.3e} "
           f"(tol {BWD_BOXES_TOL}), relative to the largest plain entry; "
           f"backward with d feats: kernel {k_ms:.3f} ms plain {p_ms:.3f} ms; "
           f"d boxes only (frozen trunk): kernel {kc_ms:.3f} ms plain "
-          f"{pc_ms:.3f} ms")
+          f"{pc_ms:.3f} ms; grid_sample's backward {l_ms:.3f} ms (d feats "
+          f"err {lib_err:.3e}, tol {BWD_FEATS_TOL}); bound with d feats "
+          f"{b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.1%} of the kernels")
     if not (f_err <= BWD_FEATS_TOL and b_err <= BWD_BOXES_TOL):
         raise AssertionError("K2b disagrees with plain autograd")
-    return {"max_abs_err": max(f_abs, b_abs), "ms": k_ms, "plain_ms": p_ms}
+    if not lib_err <= BWD_FEATS_TOL:
+        raise AssertionError("grid_sample's d feats differ from plain")
+    return {"max_abs_err": max(f_abs, b_abs), "ms": k_ms, "plain_ms": p_ms,
+            "frozen_ms": kc_ms, "frozen_plain_ms": pc_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+            "library_note": "backward of F.grid_sample (align_corners=True, "
+                            "K2's clamped positions as one grid per image) "
+                            "to the map and the grid"}
 
 
 TINY_REF = DenseCapConfig(

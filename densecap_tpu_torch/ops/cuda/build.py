@@ -112,7 +112,7 @@ def load():
         lib = ctypes.CDLL(str(so))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dc_nms.argtypes = [vp, vp, ci, ci, ci, ctypes.c_float,
-                               vp, vp, vp, vp]
+                               vp, vp, vp]
         lib.dc_nms.restype = ci
         lib.dc_roi_align_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          ci, ci, ci, vp, vp]

@@ -112,36 +112,56 @@ def nms_plain(boxes, scores, iou_thresh, max_out, valid=None,
     return _emit(order, alive, K)
 
 
-def nms_cuda(boxes, scores, iou_thresh, max_out, valid=None,
-             presorted=False):
-    """Kernel K1 on CUDA tensors; same contract as `nms_plain`."""
+# The kernel keeps each survivor (box and area, 20 bytes) in shared
+# memory: max_out of them must fit in the 227 KiB a block may use, less
+# 4 KiB for its tile buffers. N has no limit: tiles stream from memory.
+MAX_OUT = (227 * 1024 - 4 * 1024) // 20
+
+
+def prepare_cuda(boxes, scores, max_out, valid=None, presorted=False):
+    """The wrapper's work before K1: checks, the stable score sort and the
+    kernel's outputs. -> (order, sboxes, svalid uint8, keep, count)."""
     if not boxes.is_cuda:
         raise ValueError("nms_cuda takes CUDA tensors")
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, N, 4), got {tuple(boxes.shape)}")
-    B, N = boxes.shape[:2]
+    B = boxes.shape[0]
     K = int(max_out)
+    if K > MAX_OUT:
+        raise ValueError(f"nms_cuda: max_out={K} exceeds the kernel's "
+                         f"shared memory (at most {MAX_OUT})")
+    order, sboxes, svalid = _sort(boxes, scores, valid, presorted)
+    sboxes = sboxes.contiguous()
+    svalid = svalid.to(torch.uint8).contiguous()
+    if sboxes.data_ptr() % 16:
+        raise ValueError("nms_cuda: boxes must be 16-byte aligned")
+    keep = torch.empty((B, K), dtype=torch.int32, device=boxes.device)
+    count = torch.empty((B,), dtype=torch.int32, device=boxes.device)
+    return order, sboxes, svalid, keep, count
+
+
+def launch_cuda(sboxes, svalid, iou_thresh, keep, count):
+    """One launch of K1 on prepared tensors (`prepare_cuda`); not counted."""
+    B, N = svalid.shape
+    rc = build.load().dc_nms(
+        sboxes.data_ptr(), svalid.data_ptr(), B, N, keep.shape[1],
+        float(iou_thresh), keep.data_ptr(), count.data_ptr(),
+        torch.cuda.current_stream(sboxes.device).cuda_stream)
+    build.check(rc, "nms")
+
+
+def nms_cuda(boxes, scores, iou_thresh, max_out, valid=None,
+             presorted=False):
+    """Kernel K1 on CUDA tensors; same contract as `nms_plain`."""
+    order, sboxes, svalid, keep, count = prepare_cuda(
+        boxes, scores, max_out, valid=valid, presorted=presorted)
+    B, N = svalid.shape
+    K = keep.shape[1]
     dev = boxes.device
     if N == 0 or K == 0:
         return (torch.zeros((B, K), dtype=torch.int32, device=dev),
                 torch.zeros((B, K), dtype=torch.bool, device=dev))
-    order, sboxes, svalid = _sort(boxes, scores, valid, presorted)
-    sboxes = sboxes.contiguous()
-    svalid = svalid.to(torch.uint8).contiguous()
-    col_blocks = -(-N // 64)
-    if 2 * col_blocks * 8 > 48 * 1024:
-        raise ValueError(f"nms_cuda: N={N} exceeds the scan's shared memory")
-    if sboxes.data_ptr() % 16:
-        raise ValueError("nms_cuda: boxes must be 16-byte aligned")
-    mask = torch.empty((B, N, col_blocks), dtype=torch.int64, device=dev)
-    keep = torch.empty((B, K), dtype=torch.int32, device=dev)
-    count = torch.empty((B,), dtype=torch.int32, device=dev)
-    lib = build.load()
-    rc = lib.dc_nms(sboxes.data_ptr(), svalid.data_ptr(), B, N, K,
-                    float(iou_thresh), mask.data_ptr(), keep.data_ptr(),
-                    count.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "nms")
+    launch_cuda(sboxes, svalid, iou_thresh, keep, count)
     build.count_launch("nms")
     slot_ok = torch.arange(K, device=dev)[None] < count[:, None]
     idx = torch.where(slot_ok, order.gather(1, keep.long()), 0)

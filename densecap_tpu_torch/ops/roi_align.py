@@ -54,7 +54,9 @@ def _sample_coords(boxes, img_h, img_w, feat_h, feat_w, out_h, out_w):
 
 def _check_extent(feat_h, feat_w, Hf, Wf):
     # One host read per call; an empty or oversized extent would index
-    # outside the image's features.
+    # outside the image's features. The CUDA path has no such check: the
+    # callers reject such frames on the host (utils.image.check_frame_size)
+    # and the kernels clamp each extent to the map.
     h_lo, h_hi, w_lo, w_hi = torch.stack(
         [feat_h.min(), feat_h.max(), feat_w.min(), feat_w.max()]).tolist()
     if min(h_lo, w_lo) < 1 or h_hi > Hf or w_hi > Wf:
@@ -100,16 +102,12 @@ class _RoiAlignFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, yf, xf, img_idx, fh, fw):
-        B, Hf, Wf, C = feats.shape
+        C = feats.shape[3]
         R, out_h = yf.shape
         out_w = xf.shape[1]
         out = torch.empty((R, out_h, out_w, C), dtype=torch.float32,
                           device=feats.device)
-        rc = build.load().dc_roi_align_fwd(
-            feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
-            img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C,
-            out_h, out_w, out.data_ptr(), _stream(feats))
-        build.check(rc, "roi_align")
+        launch_fwd(feats, yf, xf, img_idx, fh, fw, out)
         build.count_launch("roi_align")
         ctx.save_for_backward(feats, yf, xf, img_idx, fh, fw)
         return out
@@ -148,15 +146,28 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch_fwd(feats, yf, xf, img_idx, fh, fw, out):
+    """One launch of K2 on prepared tensors (`prepare_cuda`) into `out`
+    (R, out_h, out_w, C); not counted."""
+    _, Hf, Wf, C = feats.shape
+    R, out_h = yf.shape
+    rc = build.load().dc_roi_align_fwd(
+        feats.data_ptr(), yf.data_ptr(), xf.data_ptr(), img_idx.data_ptr(),
+        fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C, out_h, xf.shape[1],
+        out.data_ptr(), _stream(feats))
+    build.check(rc, "roi_align")
+
+
 # the coordinate backward keeps one partial sum per grid row and column
 # in registers (roi_align.cu kMaxOut)
 MAX_OUT = 16
 
 
-def roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
-                   out_h=7, out_w=7):
-    """Kernels K2 / K2b on CUDA tensors; same contract as
-    `roi_align_plain`, gradients included."""
+def prepare_cuda(feats, boxes, img_h, img_w, feat_h, feat_w, out_h=7,
+                 out_w=7):
+    """The wrapper's work before K2: checks, the sample positions and each
+    box's image and extent. -> (yf (R, out_h), xf (R, out_w), img_idx,
+    fh, fw), R = B * K."""
     if not (feats.is_cuda and boxes.is_cuda):
         raise ValueError("roi_align_cuda takes CUDA tensors")
     if feats.dtype != torch.float32 or feats.dim() != 4:
@@ -169,7 +180,6 @@ def roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
     K = boxes.shape[1]
     if boxes.shape != (B, K, 4):
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
-    _check_extent(feat_h, feat_w, Hf, Wf)
     dev = feats.device
     yf, xf = _sample_coords(boxes, img_h, img_w, feat_h, feat_w,
                             out_h, out_w)
@@ -177,10 +187,19 @@ def roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
                            ).repeat_interleave(K)
     fh = feat_h.to(torch.int32).repeat_interleave(K)
     fw = feat_w.to(torch.int32).repeat_interleave(K)
-    out = _RoiAlignFn.apply(feats, yf.reshape(B * K, out_h).contiguous(),
-                            xf.reshape(B * K, out_w).contiguous(), img_idx,
-                            fh, fw)
-    return out.reshape(B, K, out_h, out_w, C)
+    return (yf.reshape(B * K, out_h).contiguous(),
+            xf.reshape(B * K, out_w).contiguous(), img_idx, fh, fw)
+
+
+def roi_align_cuda(feats, boxes, img_h, img_w, feat_h, feat_w,
+                   out_h=7, out_w=7):
+    """Kernels K2 / K2b on CUDA tensors; same contract as
+    `roi_align_plain`, gradients included. No host read."""
+    B, K = boxes.shape[:2]
+    yf, xf, img_idx, fh, fw = prepare_cuda(feats, boxes, img_h, img_w,
+                                           feat_h, feat_w, out_h, out_w)
+    out = _RoiAlignFn.apply(feats, yf, xf, img_idx, fh, fw)
+    return out.reshape(B, K, out_h, out_w, feats.shape[3])
 
 
 def roi_align(feats, boxes, img_h, img_w, feat_h, feat_w, out_h=7, out_w=7):

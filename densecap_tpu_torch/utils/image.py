@@ -27,15 +27,33 @@ def load_image(path):
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
+# the trunk's four 2x2 pools leave a side under 16 px no feature cell
+MIN_SIDE = 16
+
+
+def check_frame_size(h, w, canvas_h, canvas_w):
+    """Raise ValueError unless an (h, w) frame on a (canvas_h, canvas_w)
+    canvas has at least one feature cell each way and lies on the canvas.
+    RoI align on the card does not check extents (that would cost a host
+    read per forward), so the host checks the sizes while they are still
+    Python numbers."""
+    if not (MIN_SIDE <= h <= canvas_h and MIN_SIDE <= w <= canvas_w):
+        raise ValueError(
+            f"a {h:g}x{w:g} frame on a {canvas_h}x{canvas_w} canvas: each "
+            f"side must be at least {MIN_SIDE} px and fit the canvas")
+
+
 def preprocess_for_model_uint8(rgb, image_size=720):
     """(H0, W0, 3) uint8 RGB -> (canvas (S, S, 3) uint8 BGR, h, w, scale).
 
     PIL resizes only when the size changes; when it does not, the frame
-    is used as it is (PIL would return an identical copy).
+    is used as it is (PIL would return an identical copy). A frame whose
+    short side scales below MIN_SIDE raises ValueError.
     """
     H0, W0 = rgb.shape[:2]
     scale = float(image_size) / max(H0, W0)
     H, W = round(H0 * scale), round(W0 * scale)
+    check_frame_size(H, W, image_size, image_size)
     if (H, W) != (H0, W0):
         from PIL import Image
 
@@ -63,10 +81,14 @@ def normalize_uint8_images(images, heights, widths):
 def to_model_input(canvases, heights, widths, device):
     """B uint8 canvases (a list of (H, W, 3) or one (B, H, W, 3) array)
     and their true sizes -> the model's inputs on `device`: normalized
-    f32 images (B, H, W, 3), heights (B,) and widths (B,) f32."""
+    f32 images (B, H, W, 3), heights (B,) and widths (B,) f32. Raises
+    ValueError for a size `check_frame_size` rejects."""
+    ims = np.stack(canvases)
+    for hi, wi in zip(heights, widths):
+        check_frame_size(hi, wi, ims.shape[1], ims.shape[2])
     h = torch.tensor(heights, dtype=torch.float32, device=device)
     w = torch.tensor(widths, dtype=torch.float32, device=device)
-    ims = torch.from_numpy(np.stack(canvases)).to(device)
+    ims = torch.from_numpy(ims).to(device)
     return normalize_uint8_images(ims, h, w), h, w
 
 

@@ -50,6 +50,36 @@ def _boxes(rng, b, n, clustered=False):
     return np.concatenate([xy, wh], -1).astype(np.float32)
 
 
+TIE_HEIGHT = {0.3: 3, 0.4: 4, 0.5: 5, 0.7: 7}
+
+
+def threshold_ties(thresh):
+    """Pairs of boxes whose pascal IoU sits on `thresh` (a key of
+    TIE_HEIGHT): a 10 x h integer box inside a 10 x 10 one has IoU h / 10,
+    and f32(h * 10 / 100) == f32(thresh), so `IoU > thresh` is false. Each
+    pair also comes with the inner box's y2 or x1 one ulp either way. The
+    pairs sit apart (no two pairs touch) at offsets 0 to 5000, so an ulp
+    is from 5e-7 to 5e-4 px. -> boxes (1, N, 4) x1y1x2y2 f32 and scores
+    (1, N) f32, every outer box scored above every inner one."""
+    h = TIE_HEIGHT[thresh]
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    boxes = []
+    for base in (0.0, 100.0, 700.0, 5000.0):
+        for k, (coord, to) in enumerate([(None, None), (3, up), (3, down),
+                                         (0, up), (0, down)]):
+            ox, oy = np.float32(base + 20 * k), np.float32(base)
+            outer = np.array([ox, oy, ox + 9, oy + 9], np.float32)
+            inner = np.array([ox, oy, ox + 9, oy + h - 1], np.float32)
+            if coord is not None:
+                inner[coord] = np.nextafter(inner[coord], to)
+            boxes.append((outer, inner))
+    n = len(boxes)
+    order = [b[0] for b in boxes] + [b[1] for b in boxes]
+    scores = np.concatenate([2.0 - np.arange(n) / 100,
+                             1.0 - np.arange(n) / 100]).astype(np.float32)
+    return np.stack(order)[None], scores[None]
+
+
 @pytest.mark.parametrize("presorted", [False, True])
 @pytest.mark.parametrize("clustered", [False, True])
 def test_nms_kernel_matches_plain(dev, presorted, clustered):
@@ -86,6 +116,67 @@ def test_nms_kernel_matches_plain_extract_features_shape(dev):
     assert int(kv.sum()) == B * K
 
 
+def _nms_edge_case(name):
+    """-> (boxes x1y1x2y2 (B, N, 4), scores (B, N), valid (B, N) or None,
+    thresh, max_out) as numpy, for one named edge case of K1."""
+    rng = np.random.default_rng(len(name))
+    if name.startswith("ties_"):
+        thresh = float(name[5:])
+        boxes, scores = threshold_ties(thresh)
+        return boxes, scores, None, thresh, boxes.shape[1]
+    B, N, K, thresh, valid = {
+        "n_1000_not_tile_multiple": (2, 1000, 300, 0.7, True),
+        "n_130_not_tile_multiple": (2, 130, 50, 0.5, True),
+        "n_1": (3, 1, 4, 0.7, False),
+        "all_invalid": (2, 200, 50, 0.7, None),
+        "max_out_above_survivors": (2, 300, 290, 0.3, False),
+        "max_out_4000": (2, 6000, 4000, 0.7, False),
+        "n_24300_no_topk": (2, 24300, 1000, 0.7, False),
+    }[name]
+    boxes = xcycwh_to_x1y1x2y2(torch.from_numpy(_boxes(
+        rng, B, N, clustered=name == "max_out_above_survivors"))).numpy()
+    scores = rng.uniform(0, 1, (B, N)).astype(np.float32)
+    if valid is None:
+        v = np.zeros((B, N), bool)
+    elif valid:
+        v = rng.uniform(0, 1, (B, N)) > 0.2
+    else:
+        v = None
+    return boxes, scores, v, thresh, K
+
+
+NMS_EDGE_CASES = ["n_1000_not_tile_multiple", "n_130_not_tile_multiple",
+                  "n_1", "all_invalid", "max_out_above_survivors",
+                  "max_out_4000", "n_24300_no_topk", "ties_0.3", "ties_0.5",
+                  "ties_0.7"]
+
+
+@pytest.mark.parametrize("name", NMS_EDGE_CASES)
+def test_nms_kernel_edge_cases_match_plain(dev, name):
+    boxes, scores, valid, thresh, K = _nms_edge_case(name)
+    args = (torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+            thresh, K)
+    v = None if valid is None else torch.from_numpy(valid).to(dev)
+    build.reset_launches()
+    ki, kv = nms_mod.nms(*args, valid=v)
+    assert build.launches == dict(NONE, nms=1)
+    pi, pv = nms_mod.nms_plain(*args, valid=v)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    if name == "all_invalid":
+        assert not bool(kv.any())
+    if name == "max_out_above_survivors":
+        assert 0 < int(kv.sum(1).max()) < K
+    if name == "max_out_4000":
+        assert int(kv.sum(1).min()) == K
+
+
+def test_nms_kernel_rejects_max_out_past_shared_memory(dev):
+    boxes = torch.zeros((1, 8, 4), device=dev)
+    with pytest.raises(ValueError):
+        nms_mod.nms(boxes, torch.zeros((1, 8), device=dev), 0.5,
+                    nms_mod.MAX_OUT + 1)
+
+
 def test_roi_align_kernel_matches_plain(dev):
     rng = np.random.default_rng(0)
     feats = torch.from_numpy(
@@ -100,6 +191,74 @@ def test_roi_align_kernel_matches_plain(dev):
     got = roi_mod.roi_align(*args)
     assert build.launches == dict(NONE, roi_align=1)
     ref = roi_mod.roi_align_plain(*args)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+# K2 takes 16-byte accesses when C % 4 == 0 and the feature base is
+# 16-byte aligned, one channel per thread otherwise; cv > 128 makes a
+# thread loop over channels. "ext_1x1": an image whose cropped extent is
+# one feature cell; "misaligned": a contiguous view 4 bytes into its
+# storage.
+@pytest.mark.parametrize("C,out_hw,case", [
+    (512, (7, 7), "plain"),
+    (256, (7, 7), "plain"),
+    (6, (7, 7), "plain"),
+    (2048, (7, 7), "plain"),
+    (512, (3, 5), "plain"),
+    (256, (16, 16), "plain"),
+    (512, (7, 7), "ext_1x1"),
+    (512, (7, 7), "misaligned"),
+], ids=["c512", "c256", "c6_scalar", "c2048_loop", "out_3x5", "out_16x16",
+        "ext_1x1", "misaligned"])
+def test_roi_align_kernel_shapes_match_plain(dev, C, out_hw, case):
+    rng = np.random.default_rng(C + out_hw[0])
+    B, Hf, Wf = 3, 23, 29
+    base = torch.from_numpy(rng.standard_normal(
+        B * Hf * Wf * C + 1, dtype=np.float32)).to(dev)
+    off = 1 if case == "misaligned" else 0
+    feats = base[off:off + B * Hf * Wf * C].view(B, Hf, Wf, C)
+    assert feats.is_contiguous() and (feats.data_ptr() % 16 != 0) == bool(off)
+    img_h = torch.tensor([360.0, 270.0, 300.0], device=dev)
+    img_w = torch.tensor([460.0, 360.0, 200.0], device=dev)
+    if case == "ext_1x1":
+        img_h[1] = img_w[1] = 20.0
+    fh, fw = feat_extent(img_h, img_w)
+    assert int(fh.max()) <= Hf and int(fw.max()) <= Wf
+    bx = _boxes(rng, B, 60) * [0.5, 0.5, 1.0, 1.0]
+    args = (feats, torch.from_numpy(bx.astype(np.float32)).to(dev), img_h,
+            img_w, fh, fw, *out_hw)
+    build.reset_launches()
+    got = roi_mod.roi_align(*args)
+    assert build.launches == dict(NONE, roi_align=1)
+    ref = roi_mod.roi_align_plain(*args)
+    assert got.shape == ref.shape == (B, 60, *out_hw, C)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("extent", ["empty", "oversized"])
+def test_roi_align_kernel_keeps_a_bad_extent_in_the_map(dev, extent):
+    """The card does not check extents (the host rejects such frames in
+    utils.image): K2 and K2b clamp each extent to the map, so an empty or
+    oversized one neither faults nor poisons the CUDA context."""
+    rng = np.random.default_rng(3)
+    B, Hf, Wf, C = 2, 9, 11, 64
+    feats = torch.from_numpy(rng.standard_normal(
+        (B, Hf, Wf, C), dtype=np.float32)).to(dev)
+    img_h = torch.tensor([144.0, 100.0], device=dev)
+    img_w = torch.tensor([176.0, 120.0], device=dev)
+    bad = 0 if extent == "empty" else Hf + 7
+    fh = torch.tensor([bad, 6], dtype=torch.int32, device=dev)
+    fw = torch.tensor([7, bad], dtype=torch.int32, device=dev)
+    bx = torch.from_numpy(_boxes(rng, B, 20) * 0.2).to(dev)
+    f = feats.clone().requires_grad_()
+    b = bx.clone().requires_grad_()
+    out = roi_mod.roi_align(f, b, img_h, img_w, fh, fw)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in (out, f.grad, b.grad))
+    fh, fw = feat_extent(img_h, img_w)
+    got = roi_mod.roi_align(feats, bx, img_h, img_w, fh, fw)
+    ref = roi_mod.roi_align_plain(feats, bx, img_h, img_w, fh, fw)
     assert float((got - ref).abs().max()) <= 1e-5
 
 

@@ -12,6 +12,7 @@ import torch
 from densecap_tpu.ops.nms import nms as jax_nms
 from densecap_tpu.ops.pallas.nms_kernel import nms_pallas
 from densecap_tpu_torch.ops.nms import nms, nms_plain
+from test_torch_kernels_gpu import threshold_ties
 
 torch.set_num_threads(2)
 
@@ -58,6 +59,12 @@ def _case(name):
     if name == "k_exceeds_survivors":
         b = _corners(rng, 40, clustered=True)[None]
         return b, rng.uniform(0, 1, (1, 40)).astype(np.float32), None, 0.3, 64, False
+    if name.startswith("ties_"):
+        # IoU exactly on the threshold and one ulp either side; the card
+        # test holds K1 to nms_plain on the same set
+        thresh = float(name[5:])
+        b, s = threshold_ties(thresh)
+        return b, s, None, thresh, b.shape[1], False
     if name == "batch3":
         b = np.stack([_corners(rng, 70, clustered=c) for c in (0, 1, 0)])
         v = rng.uniform(0, 1, (3, 70)) > 0.2
@@ -66,7 +73,8 @@ def _case(name):
 
 
 CASES = ["random", "clustered", "duplicates", "equal_scores", "valid_holes",
-         "presorted", "k_exceeds_survivors", "batch3"]
+         "presorted", "k_exceeds_survivors", "batch3", "ties_0.3", "ties_0.5",
+         "ties_0.7"]
 
 
 def _port(boxes, scores, valid, thresh, k, presorted):

@@ -101,3 +101,15 @@ def test_rejects_empty_extent():
     with pytest.raises(ValueError):
         roi_align_plain(*(torch.from_numpy(a) for a in
                           (feats, boxes, hs, ws, fh * 0, fw)))
+
+
+@pytest.mark.parametrize("extent", ["empty_h", "empty_w", "oversized_h",
+                                    "oversized_w"])
+def test_dispatch_rejects_bad_extent_on_cpu(extent):
+    feats, boxes, hs, ws, fh, fw = _case("batch")
+    fh, fw = fh.copy(), fw.copy()
+    side = fh if extent.endswith("_h") else fw
+    side[1] = 0 if extent.startswith("empty") else feats.shape[1] + 1
+    with pytest.raises(ValueError):
+        roi_align(*(torch.from_numpy(a) for a in
+                    (feats, boxes, hs, ws, fh, fw)))

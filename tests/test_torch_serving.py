@@ -27,6 +27,7 @@ from densecap_tpu.serve.engine import TemporalSmoother as JaxSmoother
 from densecap_tpu_torch.config import DenseCapConfig
 from densecap_tpu_torch.serve import server as port_server
 from densecap_tpu_torch.serve.engine import InferenceEngine, TemporalSmoother
+from densecap_tpu_torch.utils.image import to_model_input
 
 torch.set_num_threads(2)
 TOL = 1e-4
@@ -101,6 +102,32 @@ def test_batch_error_reaches_every_request(params):
     finally:
         eng.close()
     assert not any(t.is_alive() for t in eng._threads)
+
+
+@pytest.mark.parametrize("batch_size", [1, 2])
+def test_thin_frame_fails_only_its_request(params, jax_results, batch_size):
+    # 2000x30 scales to 64x1 on the tiny canvas: no feature column, so
+    # RoI align would have an empty extent; the host rejects the frame
+    eng = InferenceEngine(params[1], PCFG, IDX_TO_TOKEN, device="cpu",
+                          max_boxes=5, batch_size=batch_size,
+                          request_timeout_s=60)
+    thin = np.zeros((2000, 30, 3), np.uint8)
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            bad = ex.submit(eng.process_array, thin, stream_id="thin")
+            good = ex.submit(eng.process_array, _frames()[0], stream_id="0")
+            with pytest.raises(ValueError, match="at least 16 px"):
+                bad.result(timeout=60)
+            _same(good.result(timeout=60), jax_results[0])
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("hw", [(15, 64), (64, 15), (65, 64), (64, 65)])
+def test_to_model_input_rejects_sizes_without_features(hw):
+    canvas = np.zeros((64, 64, 3), np.uint8)
+    with pytest.raises(ValueError, match="fit the canvas"):
+        to_model_input([canvas], [hw[0]], [hw[1]], "cpu")
 
 
 def test_smoother_matches_jax_and_touches_no_torch():
