@@ -1,7 +1,7 @@
 """Card-side check of the PyTorch port: kernels, full-width engine, HTTP,
 full-width training, evaluation and offline inference.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before DIR]
 
 Needs one CUDA card and the CUDA toolkit (nvcc). Phases, each printing
 its result on its own line; any failure raises and exits non-zero:
@@ -9,7 +9,8 @@ its result on its own line; any failure raises and exits non-zero:
   1. device: the card's name and power limit;
   2. build: the kernels of densecap_tpu_torch/ops/cuda (one nvcc per
      source, in parallel); the count of HGMMA (wgmma) instructions in the
-     SASS of K3's bf16 kernel, which must not be 0;
+     SASS of K3's bf16 kernel, which must not be 0, and the global
+     reductions of each K2b instance;
   3. K1 (NMS) against its plain PyTorch version at the serving shapes and
      at extract_features' (1000 unsorted -> 100 at 0.4), picks required
      identical; per shape the C launch alone ("kernel_ms": on inputs the
@@ -28,21 +29,31 @@ its result on its own line; any failure raises and exits non-zero:
      forward at B = 8 (720 px canvas, 540x720 frames) with K3 and with
      cuDNN, printed only;
   6. K2b (RoI-align backward) at the training shape against plain
-     autograd: d feats within 1e-5 and d boxes within 1e-4 of the
-     reference gradient's largest entry; grid_sample's backward as the
-     library call, its d feats within 1e-5;
+     autograd, in both instances (the positions alone, as while the
+     trunk is frozen, and with d feats): d feats within 1e-5 and d boxes
+     within 1e-4 of the reference gradient's largest entry; per instance
+     the launch alone (20 in a CUDA graph), one backward through the
+     wrapper, the plain version and the bound; grid_sample's backward as
+     the library call, its d feats within 1e-5. With --before DIR (a
+     checkout of an earlier commit, e.g. a git archive of the parent),
+     that checkout's K2b is timed alone before and after this one's, by
+     scripts/torch_k2b_alone.py in its own process;
   7. the full-width engine (VGG-16, fc 4096, vocab 10 000, 720 px canvas,
      1000 proposals, bf16, random weights from seed 0): 32 concurrent
      720x540 frames at batch 8, then frames at batch 1; K1 and K2 must
-     launch on this path. A small f32 model on the card is held against
-     the same model on the CPU (plain ops) as the reference. Then, when
-     PIL can encode JPEG, the same engine serves HTTP POSTs;
+     launch on this path. A 720x10 frame (feature extent 0) is answered
+     with no regions, as the JAX package answers it, at batch 1 and in a
+     batch of 8, and the normal frames after and beside it as before. A
+     small f32 model on the card is held against the same model on the
+     CPU (plain ops) as the reference. Then, when PIL can encode JPEG,
+     the same engine serves HTTP POSTs;
   8. training: one step of a small f32 model (K3 on, sampler pinned,
      dropout off) on the card against the CPU; then the flagship train
      step at full width (the engine's model, 384 RoIs per image, bf16,
      B = 8, K3 on): 6 steps with the trunk frozen, the finetune flip,
      2 more. Trunk1 must not move, trunk2 only after the flip; K2, K2b
-     and K3 must launch, K2b's feature scatter only after the flip;
+     and K3 must launch, K2b's positions-only instance only before the
+     flip and its d feats instance only after;
   9. evaluation: eval_split over 20 in-memory 540x720 / 720x540 frames
      with 1-30 captioned gt boxes each, at batch 8 (a tail of 4) and at
      batch 1 with the loss pass: images/s, the mAP dict, equal mAP
@@ -59,8 +70,9 @@ its result on its own line; any failure raises and exits non-zero:
      checkpoint .npz: results.json with 8 entries, boxes inside each
      frame, string captions.
 
-Phases 7 and 9-12 each drive their path with every launch count set to
-0 just before and read just after; K1 and K2 must launch on each.
+Phases 7 (and its thin-frame part) and 9-12 each drive their path with
+every launch count set to 0 just before and read just after; K1 and K2
+must launch on each.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -68,19 +80,23 @@ The last lines are a JSON object describing each kernel and
 data sheet's peaks) and "library_ms" with a "library_note": for K2 and
 K2b one F.grid_sample call (and its backward) on K2's clamped sample
 positions, held against the plain version; null for K1 and K3, which no
-single PyTorch call computes. K1 and K2 also give "kernel_ms". K3's entry gives the sum of its two stages in "ms" /
-"plain_ms" / "bound_ms" (its cost per trunk1 forward) and each stage
-under "shapes".
+single PyTorch call computes. K1, K2 and K2b also give "kernel_ms"
+(K2b: with d feats; both instances, with the earlier commit's times
+under --before, in "modes"). K3's entry gives the sum of its two stages
+in "ms" / "plain_ms" / "bound_ms" (its cost per trunk1 forward) and each
+stage under "shapes".
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import io
 import json
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -107,6 +123,7 @@ from densecap_tpu_torch.serve.server import make_handler
 from densecap_tpu_torch.utils.checkpoint import (from_torch, init_params,
                                                  save_params, to_torch)
 
+ROOT = Path(__file__).resolve().parent
 B = 8
 # NVIDIA's H100 SXM data sheet: dense bf16 peak, f32 outside the tensor
 # cores, HBM3 bandwidth. A kernel's bound_ms is the larger of its bytes
@@ -235,6 +252,17 @@ def phase_build():
     print(f"[build] K3 bf16 kernel SASS: HGMMA (wgmma) instructions {counts}")
     if len(counts) != 2 or not all(counts.values()):
         raise AssertionError(f"K3's bf16 kernel issues no wgmma: {counts}")
+    # K2b's d feats scatter: the global reductions and atomics each
+    # instance compiles to (float4 instance: one vector RED per column)
+    reds = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "roi_align_bwd_kernel" in name:
+            inst = (("float4" if "float4" in name else "float")
+                    + (" + d feats" if "Lb1E" in name else ""))
+            ops = re.findall(r"\b((?:RED|ATOM)G?\.[\w.]+)", fn)
+            reds[inst] = {op: ops.count(op) for op in sorted(set(ops))}
+    print(f"[build] K2b SASS global reductions per instance: {reds}")
 
 
 def nms_cases():
@@ -510,8 +538,25 @@ def phase_trunk1(dev):
           f"{diff:.3e}")
 
 
-def phase_roi_bwd(dev):
-    """K2b at the training shape: 8 x 384 boxes on (8, 45, 45, 512)."""
+def k2b_before(parent):
+    """K2b alone in the checkout `parent` (scripts/torch_k2b_alone.py in
+    its own process, which builds that checkout's kernels): {mode: ms}."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "torch_k2b_alone.py"),
+         "--repo", str(parent)], check=True, capture_output=True, text=True,
+        timeout=600).stdout
+    res = json.loads(out.strip().splitlines()[-1])
+    print(f"[K2b before] {res['form']} in {parent}: alone "
+          f"{res['kernel_ms']['frozen']:.4f} ms frozen, "
+          f"{res['kernel_ms']['d_feats']:.4f} ms with d feats")
+    return res["kernel_ms"]
+
+
+def phase_roi_bwd(dev, before=None):
+    """K2b at the training shape: 8 x 384 boxes on (8, 45, 45, 512). With
+    `before` (a checkout of an earlier commit), that commit's K2b is timed
+    alone too, before and after this one's."""
+    before_ms = [k2b_before(before)] if before else []
     rng = np.random.default_rng(6)
     feats = torch.from_numpy(
         rng.standard_normal((B, 45, 45, 512), dtype=np.float32)).to(dev)
@@ -546,48 +591,87 @@ def phase_roi_bwd(dev):
         gl = gout.permute(0, 4, 1, 2, 3).reshape(out.shape)
         return lambda: torch.autograd.grad(out, [x, g], gl, retain_graph=True)
 
-    kf, kb = graph(roi_mod.roi_align_cuda, True)()
-    pf, pb = graph(roi_mod.roi_align_plain, True)()
-    f_abs = float((kf - pf).abs().max())
-    b_abs = float((kb - pb).abs().max())
-    f_err = f_abs / float(pf.abs().max())
-    b_err = b_abs / float(pb.abs().max())
-    del kf
-    lib_bwd = library_graph()
-    lf = lib_bwd()[0].permute(0, 2, 3, 1)
-    lib_err = float((lf - pf).abs().max()) / float(pf.abs().max())
-    del pf, lf
+    errs = {}
+    for mode, feats_grad in (("frozen", False), ("d_feats", True)):
+        kg = graph(roi_mod.roi_align_cuda, feats_grad)()
+        pg = graph(roi_mod.roi_align_plain, True)()
+        b_abs = float((kg[-1] - pg[1]).abs().max())
+        errs[mode] = {"d_boxes": (b_abs, b_abs / float(pg[1].abs().max()))}
+        if feats_grad:
+            f_abs = float((kg[0] - pg[0]).abs().max())
+            errs[mode]["d_feats"] = (f_abs, f_abs / float(pg[0].abs().max()))
+            lib_bwd = library_graph()
+            lf = lib_bwd()[0].permute(0, 2, 3, 1)
+            lib_err = (float((lf - pg[0]).abs().max())
+                       / float(pg[0].abs().max()))
+            del lf
+        del kg, pg
+    # the launch alone, on the forward's prepared inputs: 20 in a graph
+    prep = roi_mod.prepare_cuda(feats, boxes, img_h, img_w, fh, fw)
+    g2 = gout.reshape(B * 384, 7, 7, 512)
+    d_yf = torch.empty_like(prep[0])
+    d_xf_rows = torch.empty((B * 384, 7, 7), device=dev)
+    d_feats = torch.zeros_like(feats)
+    kern_ms = {mode: graph_ms(lambda: roi_mod.launch_bwd(
+        g2, feats, *prep, d_yf, d_xf_rows,
+        d_feats if mode == "d_feats" else None))
+        for mode in ("frozen", "d_feats")}
+    del d_feats
     k_ms = cuda_ms(graph(roi_mod.roi_align_cuda, True))
     p_ms = cuda_ms(graph(roi_mod.roi_align_plain, True))
     l_ms = cuda_ms(lib_bwd)
     del lib_bwd
     kc_ms = cuda_ms(graph(roi_mod.roi_align_cuda, False))
     pc_ms = cuda_ms(graph(roi_mod.roi_align_plain, False))
-    # g and the features read once, d feats and the position gradients
-    # written once; ~20 f32 operations per element of g (scatter weights
-    # and both position sums)
+    if before:
+        before_ms.append(k2b_before(before))
+    # g and the map read once, the position gradients (and d feats)
+    # written once; per element of g ~16 f32 operations for the position
+    # sums, ~24 with the four scatter weights and adds
     rois = B * 384
-    b_ms, b_by = bound_ms(gout.numel() * 4 + 2 * feats.numel() * 4
-                          + rois * 14 * 4 * 2, gout.numel() * 20,
-                          H100_F32_TFLOPS)
+    small = rois * (14 + 3) * 4 + rois * 14 * 4
+    bounds = {"frozen": bound_ms(gout.numel() * 4 + feats.numel() * 4 + small,
+                                 gout.numel() * 16, H100_F32_TFLOPS),
+              "d_feats": bound_ms(gout.numel() * 4 + 2 * feats.numel() * 4
+                                  + small, gout.numel() * 24,
+                                  H100_F32_TFLOPS)}
+    f_err = errs["d_feats"]["d_feats"][1]
+    b_err = max(e["d_boxes"][1] for e in errs.values())
     print(f"[K2b roi_align_bwd] 8x384 boxes on (8,45,45,512) f32: d feats "
           f"err {f_err:.3e} (tol {BWD_FEATS_TOL}), d boxes err {b_err:.3e} "
-          f"(tol {BWD_BOXES_TOL}), relative to the largest plain entry; "
-          f"backward with d feats: kernel {k_ms:.3f} ms plain {p_ms:.3f} ms; "
-          f"d boxes only (frozen trunk): kernel {kc_ms:.3f} ms plain "
-          f"{pc_ms:.3f} ms; grid_sample's backward {l_ms:.3f} ms (d feats "
-          f"err {lib_err:.3e}, tol {BWD_FEATS_TOL}); bound with d feats "
-          f"{b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.1%} of the kernels")
+          f"(tol {BWD_BOXES_TOL}), relative to the largest plain entry")
+    for mode, wrap_ms, plain_ms in (("frozen", kc_ms, pc_ms),
+                                    ("d_feats", k_ms, p_ms)):
+        b_ms, b_by = bounds[mode]
+        print(f"[K2b roi_align_bwd] {mode}: kernel alone "
+              f"{kern_ms[mode]:.4f} ms "
+              f"({(gout.numel() * 4 + feats.numel() * 4) / kern_ms[mode] / 1e9:.2f}"
+              f" TB/s of g and the map), through the wrapper {wrap_ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}) = "
+              f"{b_ms / kern_ms[mode]:.1%} of the kernel alone")
+    print(f"[K2b roi_align_bwd] grid_sample's backward {l_ms:.3f} ms (d feats "
+          f"err {lib_err:.3e}, tol {BWD_FEATS_TOL})")
     if not (f_err <= BWD_FEATS_TOL and b_err <= BWD_BOXES_TOL):
         raise AssertionError("K2b disagrees with plain autograd")
     if not lib_err <= BWD_FEATS_TOL:
         raise AssertionError("grid_sample's d feats differ from plain")
-    return {"max_abs_err": max(f_abs, b_abs), "ms": k_ms, "plain_ms": p_ms,
-            "frozen_ms": kc_ms, "frozen_plain_ms": pc_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": l_ms,
+    return {"max_abs_err": max(v[0] for e in errs.values()
+                               for v in e.values()),
+            "kernel_ms": kern_ms["d_feats"], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bounds["d_feats"][0],
+            "bound_by": bounds["d_feats"][1], "library_ms": l_ms,
             "library_note": "backward of F.grid_sample (align_corners=True, "
                             "K2's clamped positions as one grid per image) "
-                            "to the map and the grid"}
+                            "to the map and the grid",
+            "modes": {mode: {"kernel_ms": kern_ms[mode],
+                             "ms": {"frozen": kc_ms, "d_feats": k_ms}[mode],
+                             "plain_ms": {"frozen": pc_ms,
+                                          "d_feats": p_ms}[mode],
+                             "bound_ms": bounds[mode][0],
+                             "bound_by": bounds[mode][1],
+                             "before_kernel_ms": [b[mode] for b in before_ms]
+                             or None}
+                      for mode in ("frozen", "d_feats")}}
 
 
 TINY_REF = DenseCapConfig(
@@ -706,11 +790,51 @@ def phase_engine(dev, params, cfg=FLAGSHIP, frame_hw=(540, 720)):
         assert bool(torch.isfinite(o.boxes[v]).all())
         print(f"[engine] raw output shapes ok, valid per image "
               f"{o.num.tolist()}, finite on valid slots")
+        phase_thin(eng8, eng1, frames, results[32])
         phase_http(eng8, frames)
     finally:
         eng8.close()
         eng1.close()
     return launches
+
+
+EMPTY = {"boxes": [], "scores": [], "captions": [], "ids": []}
+
+
+def phase_thin(eng8, eng1, frames, ref):
+    """A 720x10 frame (feature extent 0: no anchor is valid) is answered
+    with no regions, as the JAX package answers it, at batch 1 and inside
+    a batch of 8; the next normal frame is answered as before (`ref`:
+    eng1's answer to frames[0]), so the card's context is intact."""
+    thin = np.random.default_rng(12).integers(0, 256, (720, 10, 3),
+                                              dtype=np.uint8)
+
+    def drive():
+        alone = eng1.process_array(thin, stream_id="thin")
+        again = eng1.process_array(frames[0], stream_id="again")
+        with ThreadPoolExecutor(8) as ex:
+            batch = list(ex.map(
+                lambda i: eng8.process_array(thin if i == 3 else frames[i],
+                                             stream_id=f"mix{i}"), range(8)))
+        return alone, again, batch
+
+    (alone, again, batch), counts = read_launches(drive)
+    same = (again["captions"] == ref["captions"]
+            and np.allclose(again["boxes"], ref["boxes"], rtol=1e-5,
+                            atol=1e-3)
+            and np.allclose(again["scores"], ref["scores"], rtol=1e-5,
+                            atol=1e-5))
+    print(f"[thin] 720x10 frame at batch 1: {alone}; in a batch of 8: "
+          f"{batch[3]}; boxes per frame of that batch "
+          f"{[len(r['boxes']) for r in batch]}; frames[0] after it answered "
+          f"as before={same}; launches {counts}")
+    need_launches(counts, ("nms", "roi_align"), "thin-frame")
+    for r in [again] + batch:
+        check_result(r, eng8.max_boxes)
+    if not (alone == EMPTY and batch[3] == EMPTY and same
+            and all(len(r["boxes"]) for i, r in enumerate(batch) if i != 3)):
+        raise AssertionError("a thin frame was not answered as the JAX "
+                             "package answers it")
 
 
 TINY_TRAIN = DenseCapConfig(
@@ -854,10 +978,13 @@ def phase_train(dev, params, frozen_steps=6, finetune_steps=2):
         raise AssertionError(f"non-finite training loss: {totals}")
     if not (trunk1_same and trunk2_still and trunk2_moved):
         raise AssertionError("the zones did not hold")
-    if not (frozen_launches["roi_align_bwd_feats"] == 0
+    # K2b: the positions-only instance while the trunk is frozen, the one
+    # with d feats after the flip, one launch per backward either way
+    if not (frozen_launches["roi_align_bwd"] > 0
+            and frozen_launches["roi_align_bwd_feats"] == 0
+            and launches["roi_align_bwd"] == frozen_launches["roi_align_bwd"]
             and all(launches[k] > 0 for k in
-                    ("conv_pool", "roi_align", "roi_align_bwd",
-                     "roi_align_bwd_feats"))):
+                    ("conv_pool", "roi_align", "roi_align_bwd_feats"))):
         raise AssertionError(f"a kernel of the train path misbehaved: "
                              f"{frozen_launches} -> {launches}")
     return launches
@@ -1090,7 +1217,7 @@ def phase_run_model(dev, params, vocab):
 
     sizes = [(540, 720), (720, 540), (480, 640), (600, 800)] * 2
     rng = np.random.default_rng(11)
-    work = Path(__file__).resolve().parent / "build"
+    work = ROOT / "build"
     work.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         tmp = Path(tmp)
@@ -1136,14 +1263,20 @@ def phase_run_model(dev, params, vocab):
     return counts
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--before", default=None,
+                    help="a checkout of an earlier commit (e.g. a git "
+                         "archive of the parent): its K2b is timed alone "
+                         "beside this one's")
+    args = ap.parse_args(argv)
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     k1 = phase_nms(dev)
     k2 = phase_roi(dev)
     k3 = phase_conv_pool(dev)
-    k2b = phase_roi_bwd(dev)
+    k2b = phase_roi_bwd(dev, args.before)
     phase_reference(dev)
     t0 = time.perf_counter()
     params = init_params(FLAGSHIP, seed=0)
@@ -1174,8 +1307,11 @@ def main():
          **k2},
         {"name": "roi_align_bwd", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/roi_align.cu",
-         "replaces": "densecap_tpu/ops/pallas/roi_align_kernel.py:141",
+         "replaces": "densecap_tpu/ops/roi_align.py:63 (autodiff)",
          "launches": train["roi_align_bwd"] + train["roi_align_bwd_feats"],
+         "launches_by_instance": {
+             "positions (frozen trunk)": train["roi_align_bwd"],
+             "positions + d feats": train["roi_align_bwd_feats"]},
          **k2b},
         {"name": "conv_pool", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/conv_pool.cu",

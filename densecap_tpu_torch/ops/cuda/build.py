@@ -35,8 +35,9 @@ _lib = None
 build_seconds = None
 
 # Launch counts per kernel. A wrapper adds one where it launches its
-# kernel and nowhere else. K2b is two launches: the coordinate gradient
-# (roi_align_bwd) and the feature scatter (roi_align_bwd_feats).
+# kernel and nowhere else. K2b counts its two instances apart: the
+# position gradients alone (roi_align_bwd, the trunk frozen) and with the
+# feature gradient (roi_align_bwd_feats).
 launches = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
             "roi_align_bwd_feats": 0, "conv_pool": 0}
 
@@ -117,13 +118,9 @@ def load():
         lib.dc_roi_align_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          ci, ci, ci, vp, vp]
         lib.dc_roi_align_fwd.restype = ci
-        lib.dc_roi_align_bwd_feats.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                               ci, ci, ci, ci, vp, vp]
-        lib.dc_roi_align_bwd_feats.restype = ci
-        lib.dc_roi_align_bwd_coords.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                                ci, ci, ci, ci, ci, ci, vp,
-                                                vp, vp]
-        lib.dc_roi_align_bwd_coords.restype = ci
+        lib.dc_roi_align_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                         ci, ci, ci, ci, vp, vp, vp, vp]
+        lib.dc_roi_align_bwd.restype = ci
         lib.dc_conv_relu_pool.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                           vp, vp]
         lib.dc_conv_relu_pool.restype = ci

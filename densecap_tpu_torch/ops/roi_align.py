@@ -52,24 +52,18 @@ def _sample_coords(boxes, img_h, img_w, feat_h, feat_w, out_h, out_w):
     return yf, xf
 
 
-def _check_extent(feat_h, feat_w, Hf, Wf):
-    # One host read per call; an empty or oversized extent would index
-    # outside the image's features. The CUDA path has no such check: the
-    # callers reject such frames on the host (utils.image.check_frame_size)
-    # and the kernels clamp each extent to the map.
-    h_lo, h_hi, w_lo, w_hi = torch.stack(
-        [feat_h.min(), feat_h.max(), feat_w.min(), feat_w.max()]).tolist()
-    if min(h_lo, w_lo) < 1 or h_hi > Hf or w_hi > Wf:
-        raise ValueError("roi_align: feature extents must lie in "
-                         f"[1, {Hf}] x [1, {Wf}]")
-
-
 def roi_align_plain(feats, boxes, img_h, img_w, feat_h, feat_w,
                     out_h=7, out_w=7):
-    """Plain PyTorch RoI align (see module docstring)."""
+    """Plain PyTorch RoI align (see module docstring).
+
+    The tap indices clamp each extent into [1, Hf] x [1, Wf] as the
+    kernels do (`roi_align.cu` `extent()`), so an empty extent (a frame
+    under 16 px) reads cell 0, where the JAX gather's clip to -1 wraps to
+    the map's last cell. The trunk zeroes the map outside the extent, so
+    both read 0 there and the trunk's mask drops the scatter into either
+    cell."""
     B, Hf, Wf, C = feats.shape
     K = boxes.shape[1]
-    _check_extent(feat_h, feat_w, Hf, Wf)
     yf, xf = _sample_coords(boxes, img_h, img_w, feat_h, feat_w,
                             out_h, out_w)
 
@@ -79,8 +73,8 @@ def roi_align_plain(feats, boxes, img_h, img_w, feat_h, feat_w,
         i1 = torch.minimum((i0 + 1).clamp_min(0), size - 1)
         return i0, i1, pos - p0
 
-    sh = feat_h.long()[:, None, None]
-    sw = feat_w.long()[:, None, None]
+    sh = feat_h.long().clamp(1, Hf)[:, None, None]
+    sw = feat_w.long().clamp(1, Wf)[:, None, None]
     y0, y1, fy = taps(yf, sh)                    # (B, K, out_h)
     x0, x1, fx = taps(xf, sw)                    # (B, K, out_w)
     flat = feats.reshape(B * Hf * Wf, C)
@@ -115,31 +109,18 @@ class _RoiAlignFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         feats, yf, xf, img_idx, fh, fw = ctx.saved_tensors
-        g = g.contiguous()
-        B, Hf, Wf, C = feats.shape
-        R, out_h = yf.shape
-        out_w = xf.shape[1]
-        lib = build.load()
-        d_feats = d_yf = d_xf = None
-        if ctx.needs_input_grad[0]:  # never while the trunk is frozen
-            d_feats = torch.zeros_like(feats)
-            rc = lib.dc_roi_align_bwd_feats(
-                g.data_ptr(), yf.data_ptr(), xf.data_ptr(),
-                img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf,
-                C, out_h, out_w, d_feats.data_ptr(), _stream(feats))
-            build.check(rc, "roi_align_bwd_feats")
-            build.count_launch("roi_align_bwd_feats")
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            d_yf = torch.empty_like(yf)
-            d_xf = torch.empty_like(xf)
-            rc = lib.dc_roi_align_bwd_coords(
-                g.data_ptr(), feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
-                img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf,
-                C, out_h, out_w, d_yf.data_ptr(), d_xf.data_ptr(),
-                _stream(feats))
-            build.check(rc, "roi_align_bwd")
-            build.count_launch("roi_align_bwd")
-        return d_feats, d_yf, d_xf, None, None, None
+        # d feats only while the trunk trains: a frozen trunk runs the
+        # positions-only instance of K2b
+        d_feats = (torch.zeros_like(feats) if ctx.needs_input_grad[0]
+                   else None)
+        d_yf = torch.empty_like(yf)
+        d_xf_rows = yf.new_empty((*yf.shape, xf.shape[1]))
+        launch_bwd(g.contiguous(), feats, yf, xf, img_idx, fh, fw, d_yf,
+                   d_xf_rows, d_feats)
+        build.count_launch("roi_align_bwd" if d_feats is None
+                           else "roi_align_bwd_feats")
+        # each row's share of d xf, summed over the rows in a fixed order
+        return d_feats, d_yf, d_xf_rows.sum(1), None, None, None
 
 
 def _stream(t):
@@ -158,9 +139,26 @@ def launch_fwd(feats, yf, xf, img_idx, fh, fw, out):
     build.check(rc, "roi_align")
 
 
-# the coordinate backward keeps one partial sum per grid row and column
-# in registers (roi_align.cu kMaxOut)
-MAX_OUT = 16
+def launch_bwd(g, feats, yf, xf, img_idx, fh, fw, d_yf, d_xf_rows,
+               d_feats=None):
+    """One launch of K2b on the forward's prepared tensors and the
+    upstream gradient `g` (R, out_h, out_w, C): writes `d_yf` (R, out_h)
+    and `d_xf_rows` (R, out_h, out_w), each grid row's share of d xf, and
+    when `d_feats` is given adds the feature gradient into it; not
+    counted."""
+    _, Hf, Wf, C = feats.shape
+    R, out_h = yf.shape
+    rc = build.load().dc_roi_align_bwd(
+        g.data_ptr(), feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
+        img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C,
+        out_h, xf.shape[1], d_yf.data_ptr(), d_xf_rows.data_ptr(),
+        None if d_feats is None else d_feats.data_ptr(), _stream(feats))
+    build.check(rc, "roi_align_bwd")
+
+
+# K2b keeps a partial per output column in shared memory (roi_align.cu
+# kMaxOut)
+MAX_OUT_W = 16
 
 
 def prepare_cuda(feats, boxes, img_h, img_w, feat_h, feat_w, out_h=7,
@@ -174,8 +172,8 @@ def prepare_cuda(feats, boxes, img_h, img_w, feat_h, feat_w, out_h=7,
         raise ValueError("roi_align_cuda: feats must be (B, Hf, Wf, C) f32")
     if not feats.is_contiguous():
         raise ValueError("roi_align_cuda: feats must be contiguous NHWC")
-    if max(out_h, out_w) > MAX_OUT:
-        raise ValueError(f"roi_align_cuda: out_h, out_w must be <= {MAX_OUT}")
+    if out_w > MAX_OUT_W:
+        raise ValueError(f"roi_align_cuda: out_w must be <= {MAX_OUT_W}")
     B, Hf, Wf, C = feats.shape
     K = boxes.shape[1]
     if boxes.shape != (B, K, 4):

@@ -27,20 +27,17 @@ def load_image(path):
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
-# the trunk's four 2x2 pools leave a side under 16 px no feature cell
-MIN_SIDE = 16
-
-
 def check_frame_size(h, w, canvas_h, canvas_w):
-    """Raise ValueError unless an (h, w) frame on a (canvas_h, canvas_w)
-    canvas has at least one feature cell each way and lies on the canvas.
-    RoI align on the card does not check extents (that would cost a host
-    read per forward), so the host checks the sizes while they are still
-    Python numbers."""
-    if not (MIN_SIDE <= h <= canvas_h and MIN_SIDE <= w <= canvas_w):
+    """Raise ValueError unless an (h, w) frame lies on its (canvas_h,
+    canvas_w) canvas. RoI align on the card does not check extents (that
+    would cost a host read per forward), so the host checks the sizes
+    while they are still Python numbers. A side under 16 px is accepted:
+    its feature extent is 0, no anchor is valid, and the model answers
+    with no regions, as the JAX package does."""
+    if not (0 <= h <= canvas_h and 0 <= w <= canvas_w):
         raise ValueError(
             f"a {h:g}x{w:g} frame on a {canvas_h}x{canvas_w} canvas: each "
-            f"side must be at least {MIN_SIDE} px and fit the canvas")
+            "side must fit the canvas")
 
 
 def preprocess_for_model_uint8(rgb, image_size=720):
@@ -48,12 +45,12 @@ def preprocess_for_model_uint8(rgb, image_size=720):
 
     PIL resizes only when the size changes; when it does not, the frame
     is used as it is (PIL would return an identical copy). A frame whose
-    short side scales below MIN_SIDE raises ValueError.
+    short side rounds to 0 px raises PIL's ValueError, as in the JAX
+    package.
     """
     H0, W0 = rgb.shape[:2]
     scale = float(image_size) / max(H0, W0)
     H, W = round(H0 * scale), round(W0 * scale)
-    check_frame_size(H, W, image_size, image_size)
     if (H, W) != (H0, W0):
         from PIL import Image
 

@@ -43,10 +43,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ["a", "red", "cat", "blue", "dog", "tree", "tall", "man"]
 
 
-def make_dataset(root):
+def make_dataset(root, thin=False):
     """A preprocessed h5 + dicts json under `root`: 6 images (4 of
     72x96, 2 of 96x72) on a 64 px canvas, split 1 / 5 / 0, with two or
-    three captioned regions each."""
+    three captioned regions each. With `thin`, image 3 (in val) is 200x8
+    instead, 64x3 on the canvas: a feature extent of 0 columns, with its
+    regions inside the frame."""
     from PIL import Image
 
     from densecap_tpu.data import preprocess as pp
@@ -57,12 +59,19 @@ def make_dataset(root):
     data = []
     for i in range(6):
         h, w = (96, 72) if i in (2, 4) else (72, 96)
+        if thin and i == 2:
+            h, w = 200, 8
         Image.fromarray(rng.randint(0, 255, (h, w, 3), dtype=np.uint8)
                         ).save(img_dir / f"{i + 1}.jpg")
         regions = [{"phrase": "a red cat", "x": 8, "y": 8, "width": 30,
                     "height": 24},
                    {"phrase": "a blue dog", "x": 30, "y": 30, "width": 24,
                     "height": 30}]
+        if thin and i == 2:
+            regions = [{"phrase": "a red cat", "x": 2, "y": 8, "width": 5,
+                        "height": 60},
+                       {"phrase": "a blue dog", "x": 1, "y": 100, "width": 7,
+                        "height": 50}]
         if i % 2:
             regions.append({"phrase": "a tall tree", "x": 10, "y": 20,
                             "width": 40, "height": 40})

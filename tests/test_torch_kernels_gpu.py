@@ -8,8 +8,8 @@ no CPU mode). On a machine with a card and nvcc:
 (`--noconftest` because the root conftest.py configures JAX.)
 These are the checks of chip_smoke.py's kernel phases at smaller
 shapes: NMS picks identical, RoI align within 1e-5 on unit-scale
-features and its backward (K2b) within 1e-5 of the plain autograd
-gradient's scale, the fused conv+pool (K3) in f32 within 1e-4 and in
+features and its backward (K2b) within 1e-5 (d feats) and 1e-4 (d boxes)
+of the plain autograd gradient's scale, the fused conv+pool (K3) in f32 within 1e-4 and in
 bf16 no worse than the plain version against an f32 oracle, and each
 wrapper counting exactly its own launches.
 """
@@ -237,9 +237,10 @@ def test_roi_align_kernel_shapes_match_plain(dev, C, out_hw, case):
 
 @pytest.mark.parametrize("extent", ["empty", "oversized"])
 def test_roi_align_kernel_keeps_a_bad_extent_in_the_map(dev, extent):
-    """The card does not check extents (the host rejects such frames in
-    utils.image): K2 and K2b clamp each extent to the map, so an empty or
-    oversized one neither faults nor poisons the CUDA context."""
+    """The card does not check extents (the host only rejects a frame off
+    its canvas, in utils.image): K2 and K2b clamp each extent to the map
+    as the plain version does, so an empty or oversized one neither faults
+    nor poisons the CUDA context, and agrees with plain."""
     rng = np.random.default_rng(3)
     B, Hf, Wf, C = 2, 9, 11, 64
     feats = torch.from_numpy(rng.standard_normal(
@@ -250,46 +251,98 @@ def test_roi_align_kernel_keeps_a_bad_extent_in_the_map(dev, extent):
     fh = torch.tensor([bad, 6], dtype=torch.int32, device=dev)
     fw = torch.tensor([7, bad], dtype=torch.int32, device=dev)
     bx = torch.from_numpy(_boxes(rng, B, 20) * 0.2).to(dev)
-    f = feats.clone().requires_grad_()
-    b = bx.clone().requires_grad_()
-    out = roi_mod.roi_align(f, b, img_h, img_w, fh, fw)
-    out.backward(torch.ones_like(out))
+
+    def run(fn):
+        f = feats.clone().requires_grad_()
+        b = bx.clone().requires_grad_()
+        out = fn(f, b, img_h, img_w, fh, fw)
+        out.backward(torch.ones_like(out))
+        return out, f.grad, b.grad
+
+    got = run(roi_mod.roi_align)
     torch.cuda.synchronize()
-    assert all(bool(torch.isfinite(t).all()) for t in (out, f.grad, b.grad))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    ref = run(roi_mod.roi_align_plain)
+    for k, p, tol in zip(got, ref, (1e-5, 1e-5, 1e-4)):
+        assert float((k - p).abs().max()) <= tol * max(
+            float(p.abs().max()), 1.0)
     fh, fw = feat_extent(img_h, img_w)
     got = roi_mod.roi_align(feats, bx, img_h, img_w, fh, fw)
     ref = roi_mod.roi_align_plain(feats, bx, img_h, img_w, fh, fw)
     assert float((got - ref).abs().max()) <= 1e-5
 
 
+# K2b, both instances (positions alone while the trunk is frozen, and
+# with d feats), one launch per backward. One channel per thread when
+# C % 4 != 0 or the feature base is not 16-byte aligned ("misaligned": a
+# contiguous view 4 bytes into its storage); "ext_1x1" / "ext_0": an
+# image whose cropped extent is one feature cell, or none (a frame under
+# 16 px); "piled": 384 boxes on one feature cell, so the d feats
+# reductions of every block contend for the same lines. The position
+# gradients are summed in a fixed order: two launches give them bit for
+# bit.
 @pytest.mark.parametrize("feats_grad", [False, True],
                          ids=["frozen_trunk", "trunk_trains"])
-def test_roi_align_backward_matches_plain(dev, feats_grad):
-    rng = np.random.default_rng(1)
-    feats = torch.from_numpy(
-        rng.standard_normal((2, 45, 45, 256), dtype=np.float32)).to(dev)
+@pytest.mark.parametrize("C,out_hw,case", [
+    (512, (7, 7), "plain"),
+    (256, (7, 7), "plain"),
+    (6, (7, 7), "plain"),
+    (256, (3, 5), "plain"),
+    (64, (16, 16), "plain"),
+    (256, (7, 7), "ext_1x1"),
+    (256, (7, 7), "ext_0"),
+    (512, (7, 7), "piled"),
+    (256, (7, 7), "misaligned"),
+], ids=["c512", "c256", "c6_scalar", "out_3x5", "out_16x16", "ext_1x1",
+        "ext_0", "piled_384", "misaligned"])
+def test_roi_align_backward_matches_plain(dev, C, out_hw, case, feats_grad):
+    rng = np.random.default_rng(C + out_hw[0] + len(case))
+    B, Hf, Wf = 2, 45, 45
+    K = 384 if case == "piled" else 100
+    base = torch.from_numpy(rng.standard_normal(
+        B * Hf * Wf * C + 1, dtype=np.float32)).to(dev)
+    off = 1 if case == "misaligned" else 0
+    feats = base[off:off + B * Hf * Wf * C].view(B, Hf, Wf, C)
+    assert (feats.data_ptr() % 16 != 0) == bool(off)
     img_h = torch.tensor([720.0, 540.0], device=dev)
     img_w = torch.tensor([540.0, 720.0], device=dev)
+    if case == "ext_1x1":
+        img_h[1] = img_w[1] = 20.0
+    if case == "ext_0":
+        img_w[1] = 10.0
     fh, fw = feat_extent(img_h, img_w)
-    bx = torch.from_numpy(_boxes(rng, 2, 100) * [1, 1, 1.5, 1.5]
-                          ).float().to(dev)
-    g = torch.from_numpy(rng.standard_normal((2, 100, 7, 7, 256),
+    bx = _boxes(rng, B, K) * [1, 1, 1.5, 1.5]
+    if case == "piled":
+        bx[:] = [100.0, 100.0, 2.0, 2.0]
+    bx = torch.from_numpy(bx).float().to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, K, *out_hw, C),
                                              dtype=np.float32)).to(dev)
 
     def grads(fn):
-        f = feats.clone().requires_grad_(feats_grad)
+        f = feats.detach().requires_grad_(feats_grad)  # keeps the offset
         b = bx.clone().requires_grad_()
-        fn(f, b, img_h, img_w, fh, fw).backward(g)
+        fn(f, b, img_h, img_w, fh, fw, *out_hw).backward(g)
         return f.grad, b.grad
 
     build.reset_launches()
     kf, kb = grads(roi_mod.roi_align)
-    assert build.launches == dict(NONE, roi_align=1, roi_align_bwd=1,
-                                  roi_align_bwd_feats=int(feats_grad))
+    assert build.launches == dict(
+        NONE, roi_align=1, roi_align_bwd=int(not feats_grad),
+        roi_align_bwd_feats=int(feats_grad))
     pf, pb = grads(roi_mod.roi_align_plain)
     assert float((kb - pb).abs().max()) <= 1e-4 * float(pb.abs().max())
     if feats_grad:
         assert float((kf - pf).abs().max()) <= 1e-5 * float(pf.abs().max())
+    prep = roi_mod.prepare_cuda(feats, bx, img_h, img_w, fh, fw, *out_hw)
+    runs = []
+    for _ in range(2):
+        d_yf = torch.empty_like(prep[0])
+        d_xf_rows = torch.empty((B * K, *out_hw), device=dev)
+        roi_mod.launch_bwd(g.reshape(B * K, *out_hw, C), feats, *prep, d_yf,
+                           d_xf_rows, torch.zeros_like(feats) if feats_grad
+                           else None)
+        runs.append((d_yf, d_xf_rows))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 # K3's tiles are 32 conv columns x 2 conv rows per warpgroup, two tiles

@@ -94,22 +94,3 @@ def test_padded_canvas_equals_cropped_map():
     a = _port(feats, boxes, hs, ws, fh, fw)
     b = _port(crop, boxes, hs, ws, fh, fw)
     np.testing.assert_array_equal(a, b)
-
-
-def test_rejects_empty_extent():
-    feats, boxes, hs, ws, fh, fw = _case("full")
-    with pytest.raises(ValueError):
-        roi_align_plain(*(torch.from_numpy(a) for a in
-                          (feats, boxes, hs, ws, fh * 0, fw)))
-
-
-@pytest.mark.parametrize("extent", ["empty_h", "empty_w", "oversized_h",
-                                    "oversized_w"])
-def test_dispatch_rejects_bad_extent_on_cpu(extent):
-    feats, boxes, hs, ws, fh, fw = _case("batch")
-    fh, fw = fh.copy(), fw.copy()
-    side = fh if extent.endswith("_h") else fw
-    side[1] = 0 if extent.startswith("empty") else feats.shape[1] + 1
-    with pytest.raises(ValueError):
-        roi_align(*(torch.from_numpy(a) for a in
-                    (feats, boxes, hs, ws, fh, fw)))

@@ -105,29 +105,52 @@ def test_batch_error_reaches_every_request(params):
 
 
 @pytest.mark.parametrize("batch_size", [1, 2])
-def test_thin_frame_fails_only_its_request(params, jax_results, batch_size):
-    # 2000x30 scales to 64x1 on the tiny canvas: no feature column, so
-    # RoI align would have an empty extent; the host rejects the frame
+def test_thin_frame_answered_as_jax_engine_does(params, jax_results,
+                                                batch_size):
+    # 2000x30 scales to 64x1 on the tiny canvas: no feature column, so no
+    # anchor is valid and the JAX engine answers with no regions; the
+    # good frame in the same batch is answered as before
+    thin = np.zeros((2000, 30, 3), np.uint8)
+    ref = JaxEngine(params[0], JCFG, IDX_TO_TOKEN, max_boxes=5
+                    ).process_array(thin, stream_id="thin")
+    assert ref == {"boxes": [], "scores": [], "captions": [], "ids": []}
     eng = InferenceEngine(params[1], PCFG, IDX_TO_TOKEN, device="cpu",
                           max_boxes=5, batch_size=batch_size,
                           request_timeout_s=60)
-    thin = np.zeros((2000, 30, 3), np.uint8)
     try:
         with ThreadPoolExecutor(2) as ex:
             bad = ex.submit(eng.process_array, thin, stream_id="thin")
             good = ex.submit(eng.process_array, _frames()[0], stream_id="0")
-            with pytest.raises(ValueError, match="at least 16 px"):
-                bad.result(timeout=60)
+            assert bad.result(timeout=60) == ref
             _same(good.result(timeout=60), jax_results[0])
     finally:
         eng.close()
 
 
-@pytest.mark.parametrize("hw", [(15, 64), (64, 15), (65, 64), (64, 65)])
-def test_to_model_input_rejects_sizes_without_features(hw):
+@pytest.mark.parametrize("hw", [(15, 64), (64, 15), (0, 64), (64, 1)])
+def test_to_model_input_accepts_sizes_without_features(hw):
+    canvas = np.zeros((64, 64, 3), np.uint8)
+    x, h, w = to_model_input([canvas], [hw[0]], [hw[1]], "cpu")
+    assert x.shape == (1, 64, 64, 3)
+    assert (float(h[0]), float(w[0])) == hw
+
+
+@pytest.mark.parametrize("hw", [(65, 64), (64, 65)])
+def test_to_model_input_rejects_sizes_off_the_canvas(hw):
     canvas = np.zeros((64, 64, 3), np.uint8)
     with pytest.raises(ValueError, match="fit the canvas"):
         to_model_input([canvas], [hw[0]], [hw[1]], "cpu")
+
+
+def test_frame_that_rounds_to_zero_px_raises_as_jax():
+    # 2000x1 scales to 64x0: PIL refuses the resize in both packages
+    from densecap_tpu.utils.image import preprocess_for_model_uint8 as jpre
+    from densecap_tpu_torch.utils.image import preprocess_for_model_uint8
+
+    rgb = np.zeros((2000, 1, 3), np.uint8)
+    for fn in (jpre, preprocess_for_model_uint8):
+        with pytest.raises(ValueError, match="must be > 0"):
+            fn(rgb, 64)
 
 
 def test_smoother_matches_jax_and_touches_no_torch():
