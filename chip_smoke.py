@@ -1,5 +1,6 @@
 """Card-side check of the PyTorch port: kernels, full-width engine, HTTP,
-full-width training, evaluation and offline inference.
+full-width training, evaluation, offline inference, int8 serving, the
+directory daemon and the native host I/O.
 
     python3 chip_smoke.py [--before DIR]
 
@@ -25,7 +26,9 @@ its result on its own line; any failure raises and exits non-zero:
   5. K3 (fused conv+ReLU+mask+pool) at trunk1's conv1_2 and conv2_2
      shapes in bf16: its max abs error against an f32 oracle no more
      than 1.25x the plain version's; in f32 within rtol 1e-4 of plain;
-     kernel and plain ms and TFLOP/s at both shapes; then trunk1's bf16
+     the C launch alone (20 in a CUDA graph, as K1 / K2), one call
+     through the wrapper, plain ms and TFLOP/s at both shapes; then
+     trunk1's bf16
      forward at B = 8 (720 px canvas, 540x720 frames) with K3 and with
      cuDNN, printed only;
   6. K2b (RoI-align backward) at the training shape against plain
@@ -66,13 +69,30 @@ its result on its own line; any failure raises and exits non-zero:
      1, 3 and 5, tokens identical;
  11. extract_features at B = 8 (100 boxes at 0.4): ms/call, shapes,
      finite valid slots;
- 12. the run_model CLI (--device cuda) on 8 JPEG frames and a full-width
-     checkpoint .npz: results.json with 8 entries, boxes inside each
-     frame, string captions.
+ 12. [int8] W8A8 fc6 / fc7 at 8000 rows (B=8 x 1000 RoIs): torch._int_mm
+     equal to a float64 product of the same codes; its second operand
+     column-major (the layout QuantLinear stores) and row-major; the
+     quantize, int_mm and dequant split; int8 fc6+fc7 against bf16
+     (order bf16, int8, int8, bf16) with each product's bound at the
+     int8 and bf16 peaks; the codes' relative error (<= 0.05); only
+     torch._int_mm touches the fc6 / fc7 weights;
+ 13. [int8 engine] the full-width engine on quantize_for_inference
+     params beside the bf16 engine, in turns: batch 8 (32 concurrent
+     720x540 frames) images/s and batch 1 (50 proposals) p50;
+ 14. [daemon] serve.daemon.scan_once on 8 JPEGs, a truncated JPEG and a
+     .txt at the daemon's defaults (480 px, 50 proposals): 8 JSONs, the
+     bad files left in place;
+ 15. [native] whether `make -C native` built libdcio / libdcgeom here
+     (the error if not; this part runs before phase 9, whose evaluator
+     loads libdcgeom, so the build is not timed), then the run_model CLI
+     (--device cuda) on 8 JPEG frames and a full-width checkpoint .npz
+     with --native_io 1 and 0: results.json with 8 entries, boxes
+     inside each frame, string captions, the same detections both ways,
+     and each decode path's host seconds per image.
 
-Phases 7 (and its thin-frame part) and 9-12 each drive their path with
-every launch count set to 0 just before and read just after; K1 and K2
-must launch on each.
+Phases 7 (and its thin-frame part), 9-11 and 13-15 each drive their path
+with every launch count set to 0 just before and read just after; K1 and
+K2 must launch on each.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -83,8 +103,8 @@ positions, held against the plain version; null for K1 and K3, which no
 single PyTorch call computes. K1, K2 and K2b also give "kernel_ms"
 (K2b: with d feats; both instances, with the earlier commit's times
 under --before, in "modes"). K3's entry gives the sum of its two stages
-in "ms" / "plain_ms" / "bound_ms" (its cost per trunk1 forward) and each
-stage under "shapes".
+in "kernel_ms" / "ms" / "plain_ms" / "bound_ms" (its cost per trunk1
+forward) and each stage under "shapes".
 """
 
 from __future__ import annotations
@@ -109,15 +129,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from densecap_tpu_torch import native_lib
 from densecap_tpu_torch.config import DenseCapConfig
 from densecap_tpu_torch.eval.eval_split import eval_split
-from densecap_tpu_torch.models.vgg16 import TRUNK1_CFG, Trunk, feat_extent
+from densecap_tpu_torch.models.vgg16 import (TRUNK1_CFG, Linear, Recog, Trunk,
+                                             feat_extent)
 from densecap_tpu_torch.ops import conv_pool as cp
 from densecap_tpu_torch.ops import nms as nms_mod
+from densecap_tpu_torch.ops import quant
 from densecap_tpu_torch.ops import roi_align as roi_mod
 from densecap_tpu_torch.ops.boxes import xcycwh_to_x1y1x2y2
 from densecap_tpu_torch.ops.cuda import build
 from densecap_tpu_torch.parallel.train_step import Trainer, batched_loss
+from densecap_tpu_torch.serve import daemon
 from densecap_tpu_torch.serve.engine import InferenceEngine
 from densecap_tpu_torch.serve.server import make_handler
 from densecap_tpu_torch.utils.checkpoint import (from_torch, init_params,
@@ -474,7 +498,11 @@ def phase_conv_pool(dev):
             del kf, pf
             k_ms = cuda_ms(lambda: cp.conv_relu_pool_cuda(xb, wb, bb, eh, ew))
             p_ms = cuda_ms(lambda: cp.conv_relu_pool_plain(xb, wb, bb, eh, ew))
-        tflops = 2 * 9 * C * C * B * S * S / k_ms / 1e9
+            # the C launch alone, on inputs the wrapper prepared beforehand
+            prep = cp.prepare_cuda(xb, wb, bb, eh, ew)
+            kern_ms = graph_ms(lambda: cp.launch_cuda(*prep))
+            del prep
+        tflops = 2 * 9 * C * C * B * S * S / kern_ms / 1e9
         # bf16 input and pooled output once, weights and bias once
         b_ms, b_by = bound_ms(
             (B * S * S * C + B * (S // 2) ** 2 * C + 9 * C * C + C) * 2,
@@ -484,18 +512,22 @@ def phase_conv_pool(dev):
               f"{k_err / p_err:.3f}, limit {CONV_POOL_RATIO}); f32 kernel vs "
               f"plain max abs {f32_err:.3e} within rtol {CONV_POOL_F32_RTOL}="
               f"{f32_ok}; bf16 kernel vs plain max abs {kp_err:.4e}, "
-              f"{equal:.5%} bit-equal; kernel {k_ms:.3f} ms = {tflops:.1f} "
-              f"TFLOP/s ({tflops / H100_BF16_TFLOPS:.1%} of the bf16 peak), "
-              f"plain {p_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}) = "
-              f"{b_ms / k_ms:.1%} of the kernel")
+              f"{equal:.5%} bit-equal; kernel alone {kern_ms:.4f} ms = "
+              f"{tflops:.1f} TFLOP/s ({tflops / H100_BF16_TFLOPS:.1%} of the "
+              f"bf16 peak), through the wrapper {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}) = "
+              f"{b_ms / kern_ms:.1%} of the kernel alone")
         if not (k_err <= CONV_POOL_RATIO * p_err and f32_ok):
             raise AssertionError(f"K3 disagrees with plain at {name}")
         worst = max(worst, kp_err)
         shapes.append({"shape": f"{name} ({B},{S},{S},{C}) bf16",
-                       "ms": k_ms, "plain_ms": p_ms, "tflops": tflops,
+                       "kernel_ms": kern_ms, "ms": k_ms, "plain_ms": p_ms,
+                       "tflops": tflops,
                        "bound_ms": b_ms, "bound_by": b_by})
     phase_trunk1(dev)
-    return {"max_abs_err": worst, "ms": sum(s["ms"] for s in shapes),
+    return {"max_abs_err": worst,
+            "kernel_ms": sum(s["kernel_ms"] for s in shapes),
+            "ms": sum(s["ms"] for s in shapes),
             "plain_ms": sum(s["plain_ms"] for s in shapes),
             "bound_ms": sum(s["bound_ms"] for s in shapes),
             "bound_by": shapes[0]["bound_by"], "library_ms": None,
@@ -1209,22 +1241,20 @@ def phase_extract(dev, model):
     return counts
 
 
-def phase_run_model(dev, params, vocab):
-    """The run_model CLI on 8 JPEG frames and a full-width checkpoint."""
-    from PIL import Image
-
+def phase_run_model(dev, params, vocab, native):
+    """The run_model CLI on 8 JPEG frames and a full-width checkpoint, with
+    the native JPEG pipeline (--native_io 1, the default; PIL when
+    `native` says libdcio did not build) and with --native_io 0: the same
+    detections, and each decode path's host time per image."""
     from densecap_tpu_torch.cli import run_model
 
     sizes = [(540, 720), (720, 540), (480, 640), (600, 800)] * 2
-    rng = np.random.default_rng(11)
     work = ROOT / "build"
     work.mkdir(exist_ok=True)
+    runs, counts, wall = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         tmp = Path(tmp)
-        (tmp / "frames").mkdir()
-        for i, (fh, fw) in enumerate(sizes):
-            Image.fromarray(rng.integers(0, 256, (fh, fw, 3), dtype=np.uint8)
-                            ).save(tmp / "frames" / f"f{i}.jpg")
+        write_jpegs(tmp / "frames", sizes, seed=11)
         t0 = time.perf_counter()
         meta = json.dumps({"vocab_size": FLAGSHIP.vocab_size,
                            "seq_length": FLAGSHIP.seq_length,
@@ -1234,14 +1264,27 @@ def phase_run_model(dev, params, vocab):
         save_params(tmp / "ck.npz", params, extra={"meta": meta})
         mb = (tmp / "ck.npz").stat().st_size / 2**20
         t1 = time.perf_counter()
-        _, counts = read_launches(lambda: run_model.main([
-            "--checkpoint", str(tmp / "ck.npz"), "--input_dir",
-            str(tmp / "frames"), "--output_dir", str(tmp / "out"),
-            "--image_size", str(FLAGSHIP.image_size), "--num_proposals",
-            str(FLAGSHIP.test_max_proposals), "--device", "cuda"]))
-        t2 = time.perf_counter()
-        with open(tmp / "out" / "results.json") as f:
-            results = json.load(f)["results"]
+        for flag in ("1", "0"):
+            t2 = time.perf_counter()
+            _, counts[flag] = read_launches(lambda: run_model.main([
+                "--checkpoint", str(tmp / "ck.npz"), "--input_dir",
+                str(tmp / "frames"), "--output_dir", str(tmp / flag),
+                "--image_size", str(FLAGSHIP.image_size), "--num_proposals",
+                str(FLAGSHIP.test_max_proposals), "--native_io", flag,
+                "--device", dev.type]))
+            wall[flag] = time.perf_counter() - t2
+            with open(tmp / flag / "results.json") as f:
+                runs[flag] = json.load(f)["results"]
+        paths = sorted(str(p) for p in (tmp / "frames").iterdir())
+        decode_s = {}
+        for name, frames in (("pil", run_model.pil_frames),
+                             ("native", run_model.native_frames)):
+            if name == "native" and native.get("dcio") != "built":
+                continue
+            t2 = time.perf_counter()
+            n = len(list(frames(paths, FLAGSHIP.image_size)))
+            decode_s[name] = (time.perf_counter() - t2) / n
+    results = runs["1"]
     ok = len(results) == len(sizes)
     for r in results:
         fh, fw = sizes[int(r["img_name"][1:-4])]
@@ -1252,15 +1295,313 @@ def phase_run_model(dev, params, vocab):
             and (b[:, 1] + b[:, 3] - 1 <= fh + 2).all()
             and all(isinstance(c, str) for c in r["captions"])
             and len(r["captions"]) == len(b) == len(r["scores"]))
+    same = [r["img_name"] for r in runs["0"]] == [
+        r["img_name"] for r in results] and all(
+        a["captions"] == b["captions"]
+        and np.allclose(a["boxes"], b["boxes"], rtol=1e-5, atol=1e-3)
+        and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-5)
+        for a, b in zip(results, runs["0"]))
+    decoder = ("native decode" if native.get("dcio") == "built"
+               else "PIL: libdcio unavailable")
     print(f"[run_model] CLI on 8 JPEGs, full-width checkpoint ({mb:.0f} MiB, "
-          f"written in {t1 - t0:.1f} s): {t2 - t1:.1f} s for load + 8 images; "
-          f"results.json entries {len(results)}, boxes per image "
-          f"{[len(r['boxes']) for r in results]}, inside each frame (2 px "
-          f"margin) with string captions={ok}; launches {counts}")
-    need_launches(counts, ("nms", "roi_align"), "run_model")
-    if not ok:
+          f"written in {t1 - t0:.1f} s): {wall['1']:.1f} s for load + 8 "
+          f"images with --native_io 1 ({decoder}), {wall['0']:.1f} s with "
+          f"--native_io 0; results.json entries {len(results)}, boxes per "
+          f"image {[len(r['boxes']) for r in results]}, inside each frame "
+          f"(2 px margin) with string captions={ok}; "
+          f"launches {counts['1']} / {counts['0']}")
+    print(f"[native] run_model --native_io 1 against 0: same detections="
+          f"{same}; host decode + canvas seconds per image "
+          f"{ {k: round(v, 6) for k, v in decode_s.items()} } (8 JPEGs, "
+          f"540x720 to 600x800, into the {FLAGSHIP.image_size} px canvas)")
+    for flag in counts:
+        need_launches(counts[flag], ("nms", "roi_align"),
+                      f"run_model --native_io {flag}")
+    if not (ok and same):
         raise AssertionError("run_model's results.json is wrong")
+    return counts["1"], counts["0"], decode_s
+
+
+INT8_TOPS = 1979.0  # H100 SXM data sheet: dense int8 tensor-core peak
+FC_SHAPES = {"fc6": 7 * 7 * 512, "fc7": 4096}  # K of each layer; N = 4096
+
+
+class ProductCount(torch.overrides.TorchFunctionMode):
+    """Records each matrix product's function and operand shapes."""
+
+    PRODUCTS = {"mm", "matmul", "__matmul__", "_int_mm", "addmm", "bmm",
+                "linear"}
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name in self.PRODUCTS:
+            self.calls.append((name, tuple(tuple(a.shape) for a in args
+                                           if isinstance(a, torch.Tensor))))
+        return func(*args, **(kwargs or {}))
+
+
+def as_ms(v):
+    return f"{v:.4f} ms" if isinstance(v, float) else str(v)
+
+
+def fc_products(calls):
+    """The products among `calls` whose operand is an fc6 / fc7 weight."""
+    weights = {(k, 4096) for k in FC_SHAPES.values()}
+    return [name for name, shapes in calls if weights & set(shapes)]
+
+
+def phase_int8(dev, params):
+    """int8 W8A8 fc6 / fc7 at the flagship shapes (B x 1000 RoIs = 8000
+    rows): torch._int_mm held exactly to a float64 product of the same
+    codes, both layouts of its second operand, the quantize / product /
+    dequant split, and int8 fc6+fc7 against bf16 on the same features."""
+    M = B * FLAGSHIP.test_max_proposals
+    g = torch.Generator(device=dev).manual_seed(13)
+    # RoI features as K2 leaves them (ReLU'd maps), in the compute dtype
+    x = torch.randn((M, FC_SHAPES["fc6"]), generator=g, device=dev).abs_()
+    x = x.bfloat16()
+    rec = params["recog"]
+    qlayers = {n: quant.QuantLinear(quant.quantize_linear(rec[n]), dev)
+               for n in FC_SHAPES}
+    blayers = {n: Linear(torch.from_numpy(rec[n]["w"]).to(dev, torch.bfloat16),
+                         torch.from_numpy(rec[n]["b"]).to(dev))
+               for n in FC_SHAPES}
+    out = {"rows": M}
+    with torch.inference_mode():
+        q6 = qlayers["fc6"]
+        x_q, sx = quant.quantize_rows(x)
+        acc = quant.int_mm(x_q, q6)
+        ref = x_q.double() @ q6.w_qt.t().double()  # integer sums: exact
+        exact = bool(torch.equal(acc.double(), ref))
+        del ref
+        # the second operand column-major (QuantLinear's layout) or row-major
+        col = q6.w_qt.t()
+        row = col.contiguous()
+        try:
+            row_same = bool(torch.equal(torch._int_mm(x_q, row), acc))
+            layout_ms = {"row-major": cuda_ms(lambda: torch._int_mm(x_q, row))}
+        except RuntimeError as e:
+            row_same, layout_ms = None, {"row-major": f"refused: {e}"}
+        layout_ms["column-major"] = cuda_ms(lambda: torch._int_mm(x_q, col))
+        del row
+        split = {"quantize": cuda_ms(lambda: quant.quantize_rows(x)),
+                 "int_mm": layout_ms["column-major"],
+                 "dequant": cuda_ms(lambda: quant.dequantize(acc, sx, q6))}
+        h7 = torch.relu(quant.dequantize(acc, sx, q6)).bfloat16()
+        x7_q, sx7 = quant.quantize_rows(h7)
+        split["fc7 quantize"] = cuda_ms(lambda: quant.quantize_rows(h7))
+        split["fc7 int_mm"] = cuda_ms(
+            lambda: quant.int_mm(x7_q, qlayers["fc7"]))
+        del acc, x_q, h7, x7_q
+        feats = x.view(M, 7, 7, 512)
+        recog = {"bf16": Recog(blayers["fc6"], blayers["fc7"], torch.bfloat16),
+                 "int8": Recog(qlayers["fc6"], qlayers["fc7"], torch.bfloat16)}
+        codes, fc_calls = {}, {}
+        for k, r in recog.items():
+            with ProductCount() as tape:
+                codes[k] = r(feats)
+            fc_calls[k] = fc_products(tape.calls)
+        rel = float((codes["int8"] - codes["bf16"]).norm()
+                    / codes["bf16"].norm())
+        del codes
+        ms = {k: [] for k in recog}
+        for k in ("bf16", "int8", "int8", "bf16"):
+            ms[k].append(cuda_ms(lambda: recog[k](feats)))
+    bounds = {}
+    for n, K in FC_SHAPES.items():
+        ops = 2 * M * K * 4096
+        bounds[f"{n} int8"] = bound_ms(M * K + K * 4096 + M * 4096 * 4, ops,
+                                       INT8_TOPS)
+        bounds[f"{n} bf16"] = bound_ms(M * K * 2 + K * 4096 * 2 + M * 4096 * 4,
+                                       ops, H100_BF16_TFLOPS)
+    # the quantize pass: bf16 in, int8 codes and f32 scales out
+    bounds["fc6 quantize"] = bound_ms(M * FC_SHAPES["fc6"] * 3 + M * 4, 0, 1)
+    bounds["fc6 dequant"] = bound_ms(M * 4096 * 8, 0, 1)
+    print(f"[int8] fc6 {M}x{FC_SHAPES['fc6']}x4096: torch._int_mm equal to a "
+          f"float64 product of the same codes={exact}; second operand "
+          f"column-major {layout_ms['column-major']:.4f} ms, row-major "
+          f"{as_ms(layout_ms['row-major'])} (same result={row_same}); bound "
+          f"{bounds['fc6 int8'][0]:.4f} ms "
+          f"({bounds['fc6 int8'][1]}, {INT8_TOPS:.0f} TOPS) against bf16's "
+          f"{bounds['fc6 bf16'][0]:.4f} ms ({H100_BF16_TFLOPS:.0f} TFLOP/s)")
+    print(f"[int8] split per fc6 call (CUDA events, median of 10): quantize "
+          f"{split['quantize']:.4f} ms (bound {bounds['fc6 quantize'][0]:.4f},"
+          f" bytes), int_mm {split['int_mm']:.4f} ms, dequant "
+          f"{split['dequant']:.4f} ms (bound {bounds['fc6 dequant'][0]:.4f}); "
+          f"fc7: quantize {split['fc7 quantize']:.4f} ms, int_mm "
+          f"{split['fc7 int_mm']:.4f} ms (bound {bounds['fc7 int8'][0]:.4f})")
+    print(f"[int8] fc6+fc7 (Recog, {M} rows): int8 {ms['int8'][0]:.3f} / "
+          f"{ms['int8'][1]:.3f} ms, bf16 dot_f32 {ms['bf16'][0]:.3f} / "
+          f"{ms['bf16'][1]:.3f} ms (order bf16, int8, int8, bf16); product "
+          f"bounds int8 {bounds['fc6 int8'][0] + bounds['fc7 int8'][0]:.4f} "
+          f"ms, bf16 {bounds['fc6 bf16'][0] + bounds['fc7 bf16'][0]:.4f} ms; "
+          f"codes' relative error int8 vs bf16 {rel:.3e}; products on the "
+          f"fc6 / fc7 weights: {fc_calls}")
+    if not exact:
+        raise AssertionError("torch._int_mm differs from the exact product")
+    if fc_calls["int8"] != ["_int_mm"] * 2:
+        raise AssertionError(f"an int8 layer ran a float product: {fc_calls}")
+    if not rel <= 0.05:
+        raise AssertionError(f"int8 codes differ from bf16 by {rel:.3e}")
+    out.update(exact=exact, layout_ms=layout_ms, split_ms=split,
+               fc_ms=ms, rel_err=rel,
+               bounds_ms={k: v[0] for k, v in bounds.items()})
+    return out
+
+
+def timed_batch(engine, frames):
+    """Seconds for len(frames) concurrent requests through `engine`."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(frames)) as ex:
+        results = list(ex.map(
+            lambda i: engine.process_array(frames[i], stream_id=str(i)),
+            range(len(frames))))
+    return time.perf_counter() - t0, results
+
+
+def p50_ms(engine, frames):
+    """Median ms of one request at a time over frames[1:] (frames[0]
+    warms)."""
+    lat = []
+    for f in frames:
+        t0 = time.perf_counter()
+        check_result(engine.process_array(f), engine.max_boxes)
+        lat.append(time.perf_counter() - t0)
+    return statistics.median(lat[1:]) * 1e3
+
+
+def phase_engine_int8(dev, params, vocab):
+    """The full-width engine on quantize_for_inference params beside the
+    bf16 engine, in turns: batch 8 (32 concurrent 720x540 frames, 1000
+    proposals) and batch 1 (50 proposals, the demo setting)."""
+    qparams = quant.quantize_for_inference(params)
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(0, 256, (540, 720, 3), dtype=np.uint8)
+              for _ in range(32)]
+    kinds = {"bf16": params, "int8": qparams}
+    order = ("bf16", "int8", "int8", "bf16")
+    eng8 = {k: InferenceEngine(p, FLAGSHIP, vocab, device=dev, batch_size=8,
+                               batch_window_ms=50.0) for k, p in kinds.items()}
+    try:
+        assert isinstance(eng8["int8"].model.recog.fc6, quant.QuantLinear)
+        for e in eng8.values():
+            e.warmup()
+            timed_batch(e, frames[:16])
+        rate = {k: [] for k in kinds}
+        counts = None
+        for k in order:
+            (wall, results), c = read_launches(
+                lambda: timed_batch(eng8[k], frames))
+            rate[k].append(len(frames) / wall)
+            for r in results:
+                check_result(r, eng8[k].max_boxes)
+            if k == "int8" and counts is None:
+                counts = c
+        # the full path's products on the fc6 / fc7 weights, one batch
+        x, h, w = canvases(dev, B, FLAGSHIP.image_size)
+        fc_calls = {}
+        for k, e in eng8.items():
+            with ProductCount() as tape:
+                e.model.forward_test_batch(x, h, w)
+            fc_calls[k] = fc_products(tape.calls)
+        del x
+    finally:
+        for e in eng8.values():
+            e.close()
+    cfg50 = FLAGSHIP.replace(test_max_proposals=50)
+    eng1 = {k: InferenceEngine(p, cfg50, vocab, device=dev, batch_size=1)
+            for k, p in kinds.items()}
+    for e in eng1.values():
+        e.warmup()
+    p50 = {k: [] for k in kinds}
+    for k in order:
+        p50[k].append(p50_ms(eng1[k], frames[:11]))
+    (_, c1) = read_launches(lambda: p50_ms(eng1["int8"], frames[:3]))
+    print(f"[int8 engine] batch 8, 32 concurrent 720x540 frames, "
+          f"{FLAGSHIP.test_max_proposals} proposals: int8 "
+          f"{rate['int8'][0]:.2f} / {rate['int8'][1]:.2f} "
+          f"images/s, bf16 {rate['bf16'][0]:.2f} / {rate['bf16'][1]:.2f} "
+          f"(order bf16, int8, int8, bf16); launches on the int8 path "
+          f"{counts}")
+    print(f"[int8 engine] batch 1, 50 proposals: p50 int8 {p50['int8'][0]:.1f}"
+          f" / {p50['int8'][1]:.1f} ms, bf16 {p50['bf16'][0]:.1f} / "
+          f"{p50['bf16'][1]:.1f} ms over 10 frames each; launches {c1}; "
+          f"products on the fc6 / fc7 weights per batch forward {fc_calls}")
+    need_launches(counts, ("nms", "roi_align"), "int8 engine")
+    need_launches(c1, ("nms", "roi_align"), "int8 engine at batch 1")
+    if fc_calls["int8"] != ["_int_mm"] * 2:
+        raise AssertionError(f"an int8 layer ran a float product: {fc_calls}")
+    return counts, {"images_per_s": rate, "p50_ms": p50}
+
+
+def write_jpegs(folder, sizes, seed):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    folder.mkdir()
+    for i, (fh, fw) in enumerate(sizes):
+        Image.fromarray(rng.integers(0, 256, (fh, fw, 3), dtype=np.uint8)
+                        ).save(folder / f"f{i}.jpg")
+
+
+def phase_daemon(dev, params, vocab):
+    """serve.daemon's scan_once on 8 JPEGs (plus a truncated JPEG and a
+    .txt) with the full-width model at the daemon's defaults (480 px, 50
+    proposals, 50 boxes)."""
+    defaults = daemon.build_argparser().parse_args(["--checkpoint", ""])
+    cfg = FLAGSHIP.replace(image_size=defaults.image_size,
+                           test_max_proposals=defaults.num_proposals)
+    engine = InferenceEngine(params, cfg, vocab, device=dev,
+                             max_boxes=defaults.max_boxes)
+    engine.warmup()
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        src, dst = Path(tmp) / "in", Path(tmp) / "out"
+        write_jpegs(src, [(540, 720), (720, 540), (480, 640), (600, 800)] * 2,
+                    seed=14)
+        full = (src / "f0.jpg").read_bytes()
+        (src / "partial.jpg").write_bytes(full[:len(full) // 3])
+        (src / "notes.txt").write_text("not an image")
+        dst.mkdir()
+        t0 = time.perf_counter()
+        handled, counts = read_launches(
+            lambda: daemon.scan_once(engine, str(src), str(dst)))
+        wall = time.perf_counter() - t0
+        left = sorted(p.name for p in src.iterdir())
+        outs = sorted(p.name for p in dst.iterdir())
+        results = [json.loads((dst / n).read_text()) for n in outs]
+    for r in results:
+        check_result(r, defaults.max_boxes)
+    ok = (handled == 8 and left == ["notes.txt", "partial.jpg"]
+          and outs == [f"f{i}.json" for i in range(8)])
+    print(f"[daemon] scan_once at {defaults.image_size} px, "
+          f"{defaults.num_proposals} proposals: {handled} JPEGs answered in "
+          f"{wall:.2f} s ({wall / max(handled, 1) * 1e3:.1f} ms each, host "
+          f"clock, decode and JSON included); left in place {left}; outputs "
+          f"{len(outs)} JSONs, no .tmp="
+          f"{not any(n.endswith('.tmp') for n in outs)}"
+          f"; boxes per frame {[len(r['boxes']) for r in results]}; "
+          f"launches {counts}")
+    need_launches(counts, ("nms", "roi_align"), "daemon")
+    if not ok:
+        raise AssertionError("the daemon broke its file contract")
     return counts
+
+
+def phase_native():
+    """Whether `make -C native` built each native library here."""
+    status = {}
+    for name in ("dcio", "dcgeom"):
+        ok = native_lib.is_available(name)
+        status[name] = "built" if ok else native_lib.build_error.get(name)
+        print(f"[native] lib{name}.so: "
+              f"{'loaded' if ok else 'unavailable: ' + str(status[name])}")
+    return status
 
 
 def main(argv=None):
@@ -1286,13 +1627,25 @@ def main(argv=None):
     phase_train_reference(dev)
     train = phase_train(dev, params)
     vocab = {i: f"w{i}" for i in range(1, FLAGSHIP.vocab_size + 1)}
+    # set-up: `make -C native` runs here, not inside a timed phase (the
+    # evaluator loads libdcgeom at its first image)
+    native = phase_native()
     model = to_torch(params, FLAGSHIP, dev)
     paths = {"serve": serve, "eval": phase_eval(dev, model, vocab),
              "beam": phase_beam(dev, model),
              "extract_features": phase_extract(dev, model)}
     del model
     torch.cuda.empty_cache()
-    paths["run_model"] = phase_run_model(dev, params, vocab)
+    int8 = phase_int8(dev, params)
+    torch.cuda.empty_cache()
+    paths["int8 engine"], int8["engine"] = phase_engine_int8(dev, params,
+                                                             vocab)
+    paths["daemon"] = phase_daemon(dev, params, vocab)
+    (paths["run_model --native_io 1"], paths["run_model --native_io 0"],
+     decode_s) = phase_run_model(dev, params, vocab, native)
+    print(f"[int8] summary {json.dumps(int8)}")
+    print("[native] summary " + json.dumps(
+        {"libraries": native, "decode_s_per_image": decode_s}))
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",

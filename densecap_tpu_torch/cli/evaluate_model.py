@@ -17,7 +17,8 @@ from ..data.loader import DenseCapLoader
 from ..eval.eval_split import eval_split
 from ..utils.checkpoint import load_checkpoint, to_torch
 from ..utils.image import parse_buckets
-from ._common import NOT_PORTED, resolve_device
+from ._common import (NOT_PORTED, add_quantize_flag, maybe_quantize,
+                      resolve_device)
 
 
 def build_argparser():
@@ -44,6 +45,7 @@ def build_argparser():
                         "each batch runs on the smallest that holds it, with "
                         "the outputs of the square canvas")
     p.add_argument("--out_json", default="")
+    add_quantize_flag(p)
     p.add_argument("--device", default="cuda",
                    help="torch device, e.g. cuda or cpu")
     return p
@@ -57,6 +59,7 @@ def main(argv=None):
     try:
         params, _, cfg = load_checkpoint(args.checkpoint, loader.vocab_size(),
                                          loader.seq_length())
+        params = maybe_quantize(params, args.quantize)
         cfg = cfg.replace(
             image_size=loader.canvas,
             test_max_proposals=args.num_proposals,

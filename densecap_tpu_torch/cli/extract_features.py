@@ -20,7 +20,8 @@ import numpy as np
 from ..utils.checkpoint import load_checkpoint, to_torch
 from ..utils.image import (load_image, parse_buckets, pick_bucket,
                            preprocess_for_model_uint8, to_model_input)
-from ._common import NOT_PORTED, resolve_device
+from ._common import (NOT_PORTED, add_quantize_flag, maybe_quantize,
+                      resolve_device)
 
 
 def build_argparser():
@@ -37,6 +38,7 @@ def build_argparser():
     p.add_argument("--max_images", type=int, default=-1)
     p.add_argument("--canvas_buckets", default="",
                    help="comma list of HxW canvases (as run_model's)")
+    add_quantize_flag(p)
     p.add_argument("--device", default="cuda",
                    help="torch device, e.g. cuda or cpu")
     return p
@@ -61,6 +63,7 @@ def main(argv=None):
     import h5py
 
     params, _, cfg = load_checkpoint(args.checkpoint)
+    params = maybe_quantize(params, args.quantize)
     cfg = cfg.replace(image_size=args.image_size)
     model = to_torch(params, cfg, device)
     buckets = (parse_buckets(args.canvas_buckets, args.image_size)

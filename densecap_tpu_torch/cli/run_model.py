@@ -9,6 +9,12 @@ preprocessed h5, and writes `<output_dir>/results.json` in the schema of
 the d3 viewer (`vis/view_results.html`): per image its name, boxes as
 original-image (x, y, w, h), objectness scores and captions. With
 --output_images it also writes each image with its top boxes drawn in.
+
+A directory of JPEGs is decoded by the native pipeline (`native_lib`,
+`native/dcio.cpp`) when it builds: chunks of 16 files on C++ threads, the
+next chunk decoding while the model runs the current one. Otherwise, and
+with --native_io 0, PIL decodes each file. --quantize int8 runs fc6/fc7
+in int8 (`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -17,13 +23,20 @@ import argparse
 import json
 import os
 import shutil
+import sys
+from concurrent.futures import ThreadPoolExecutor
 
+from .. import native_lib
+from ..config import VGG_MEAN_BGR
 from ..ops.boxes import xcycwh_to_xywh
 from ..utils.checkpoint import load_checkpoint, to_torch
 from ..utils.image import (load_image, parse_buckets, pick_bucket,
                            preprocess_for_model_uint8, to_model_input)
 from ..utils.text import decode_sequence
-from ._common import NOT_PORTED, resolve_device
+from ._common import (NOT_PORTED, add_quantize_flag, maybe_quantize,
+                      resolve_device)
+
+NATIVE_CHUNK = 16  # files per dcio_load_batch call
 
 
 def build_argparser():
@@ -58,6 +71,16 @@ def build_argparser():
                    help="comma list of HxW canvases (e.g. 720x544,544x720); "
                         "each image runs on the smallest that holds it, with "
                         "the outputs of the square canvas")
+    p.add_argument("--native_io", type=int, default=1,
+                   help="decode an --input_dir of JPEGs with the threaded "
+                        "C++ pipeline (native/dcio.cpp); PIL when it does "
+                        "not build or the inputs are not all JPEG")
+    p.add_argument("--fast_io", type=int, default=0,
+                   help="with --native_io: decode large JPEGs at a DCT "
+                        "scale that still covers the canvas, then resize "
+                        "(faster; pixels not bit-identical to the exact "
+                        "path, extents and box mapping identical)")
+    add_quantize_flag(p)
     p.add_argument("--device", default="cuda",
                    help="torch device, e.g. cuda or cpu")
     return p
@@ -75,9 +98,53 @@ def get_input_images(args):
     raise SystemExit("need --input_image, --input_dir or --input_split")
 
 
+def use_native_io(args, paths):
+    """--native_io applies to an --input_dir of JPEGs, when libdcio loads."""
+    return bool(args.native_io and args.input_dir
+                and all(p.lower().endswith((".jpg", ".jpeg")) for p in paths)
+                and native_lib.is_available("dcio"))
+
+
+def pil_frames(paths, image_size):
+    """Yields (path, uint8 canvas, h, w, scale) per file, decoded by PIL."""
+    for path in paths:
+        canvas, h, w, scale = preprocess_for_model_uint8(load_image(path),
+                                                         image_size)
+        yield path, canvas, h, w, scale
+
+
+def native_frames(paths, image_size, fast_dct=False):
+    """Yields (path, normalized f32 canvas, h, w, scale) per file that
+    decodes, from `native_lib.load_batch` over chunks of NATIVE_CHUNK
+    paths; the next chunk decodes on a thread meanwhile. A file that does
+    not decode is reported and skipped."""
+    chunks = [paths[i:i + NATIVE_CHUNK]
+              for i in range(0, len(paths), NATIVE_CHUNK)]
+    if not chunks:
+        return
+
+    def decode(chunk):
+        return native_lib.load_batch(chunk, image_size, VGG_MEAN_BGR,
+                                     fast_dct=fast_dct)
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(decode, chunks[0])
+        for ci, chunk in enumerate(chunks):
+            canv, hts, wds, ohts, owds, _ = fut.result()
+            if ci + 1 < len(chunks):
+                fut = pool.submit(decode, chunks[ci + 1])
+            for j, path in enumerate(chunk):
+                if hts[j] == 0:
+                    print(f"{path}: decode failed, skipping")
+                    continue
+                scale = image_size / float(max(ohts[j], owds[j]))
+                yield path, canv[j], float(hts[j]), float(wds[j]), scale
+
+
 def detect(model, canvas, h, w, beam_size):
-    """One uint8 canvas -> its valid detections: canvas-coordinate xywh
-    boxes (N, 4), scores (N,) and tokens (N, T), as numpy."""
+    """One canvas (uint8, or normalized f32) -> its valid detections:
+    canvas-coordinate xywh boxes (N, 4), scores (N,) and tokens (N, T), as
+    numpy."""
     out = model.forward_test_batch(
         *to_model_input([canvas], [h], [w], model.obj_w.device),
         use_beam=beam_size)
@@ -138,6 +205,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     params, meta, cfg = load_checkpoint(args.checkpoint)
+    params = maybe_quantize(params, args.quantize)
     cfg = cfg.replace(
         image_size=args.image_size,
         test_rpn_nms_thresh=args.rpn_nms_thresh,
@@ -154,10 +222,18 @@ def main(argv=None):
     idx_to_token = meta.get("idx_to_token", {})
     buckets = (parse_buckets(args.canvas_buckets, args.image_size)
                if args.canvas_buckets else None)
+    native = use_native_io(args, paths)
+    if args.fast_io and not native:
+        print("warning: --fast_io requires the native decode path "
+              "(--native_io with libdcio present, --input_dir, JPEG "
+              "inputs); ignored on the PIL path", file=sys.stderr)
+    if native:
+        print(f"native IO: threaded C++ decode for {len(paths)} images")
+        frames = native_frames(paths, args.image_size, bool(args.fast_io))
+    else:
+        frames = pil_frames(paths, args.image_size)
     results = []
-    for path in paths:
-        rgb = load_image(path)
-        canvas, h, w, scale = preprocess_for_model_uint8(rgb, args.image_size)
+    for path, canvas, h, w, scale in frames:
         if buckets is not None:
             bh, bw = pick_bucket(h, w, buckets)
             canvas = canvas[:bh, :bw]
@@ -181,6 +257,7 @@ def main(argv=None):
 
             k = min(args.boxes_to_show, len(xywh))
             stem = os.path.splitext(os.path.basename(path))[0]
+            rgb = load_image(path)
             Image.fromarray(densecap_draw(rgb, xywh[:k], captions[:k])).save(
                 os.path.join(args.output_dir, stem + "_boxes.png"))
     if args.output_vis:

@@ -5,7 +5,8 @@ densecap_tpu/eval/evaluator.py, after the reference's eval_utils.lua).
     captions all count as references (`ops.boxes.merge_boxes`);
   * detections, in descending objectness, each take the merged box of
     highest IoU; the first to take a box is a hit ('ok'), later ones are
-    not;
+    not. When `native/libdcgeom.so` builds, the merge and this assignment
+    run there (`native_lib`), with the semantics of the numpy code;
   * AP over 5 IoU thresholds {0.3 .. 0.7} x 6 caption-score thresholds
     {0, 0.05 .. 0.25}, each with 101-point interpolated precision; mAP is
     their mean. The detection AP ('detmap') uses score threshold -1,
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native_lib
 from ..ops.boxes import merge_boxes
 from . import meteor
 
@@ -65,25 +67,19 @@ class DenseCaptioningEvaluator:
         if len(target_boxes) != len(target_text):
             raise ValueError("target_boxes and target_text differ in length")
 
-        groups = merge_boxes(target_boxes, 0.7)
+        native = native_lib.is_available("dcgeom")
+        groups = (native_lib.merge_boxes(target_boxes, 0.7)
+                  if native and len(target_boxes)
+                  else merge_boxes(target_boxes, 0.7))
         merged_boxes = (np.stack([target_boxes[g].mean(axis=0)
                                   for g in groups])
                         if groups else np.zeros((0, 4)))
         merged_text = [[target_text[j] for j in g] for g in groups]
 
         nt = len(merged_boxes)
-        used = np.zeros(nt, dtype=bool)
-        for ii in np.argsort(-logprobs, kind="stable"):
-            jmax, ovmax = -1, 0.0
-            if nt:
-                ious = _pascal_iou_one_vs_many(boxes[ii], merged_boxes)
-                jmax = int(np.argmax(ious))
-                ovmax = float(ious[jmax])
-                if ovmax <= 0:
-                    jmax = -1
-            ok = int(jmax >= 0 and not used[jmax])
-            if ok:
-                used[jmax] = True
+        order = np.argsort(-logprobs, kind="stable")
+        for ii, jmax, ovmax, ok in zip(order, *self._assign(
+                boxes[order], merged_boxes, native)):
             self.records.append({
                 "ok": ok,
                 "ov": ovmax,
@@ -94,6 +90,27 @@ class DenseCaptioningEvaluator:
         self.n += 1
         self.npos += nt
         self.all_logprobs.append(np.sort(logprobs)[::-1])
+
+    @staticmethod
+    def _assign(det, merged, native):
+        """Greedy assignment of score-sorted x1y1x2y2 detections to the
+        merged gt boxes: per detection (gt index or -1, best IoU, ok)."""
+        nd, nt = len(det), len(merged)
+        if native and nt:
+            ov, jmax, ok = native_lib.assign(det, merged)
+            return jmax.tolist(), ov.tolist(), ok.tolist()
+        out = ([-1] * nd, [0.0] * nd, [0] * nd)
+        used = np.zeros(nt, dtype=bool)
+        for d in range(nd if nt else 0):
+            ious = _pascal_iou_one_vs_many(det[d], merged)
+            j = int(np.argmax(ious))
+            out[1][d] = float(ious[j])
+            if not out[1][d] <= 0:
+                out[0][d] = j
+                if not used[j]:
+                    used[j] = True
+                    out[2][d] = 1
+        return out
 
     def num_added(self):
         return self.n - 1

@@ -20,16 +20,17 @@ from .vgg16 import dot_f32, frozen
 
 class LanguageModel(nn.Module):
     """Matrices (in, out), cast to the compute dtype at use; biases and
-    the embedding f32."""
+    the embedding f32. `proj`, the vocab projection, is a `Linear` or, for
+    int8 inference, a `QuantLinear`, which quantizes the f32 hidden state
+    as it is (JAX `_project`)."""
 
-    def __init__(self, enc_w, enc_b, embed, Wx, Wh, b, proj_w, proj_b,
-                 compute_dtype):
+    def __init__(self, enc_w, enc_b, embed, Wx, Wh, b, proj, compute_dtype):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.enc_w, self.enc_b = frozen(enc_w), frozen(enc_b)
         self.embed_w = frozen(embed)
         self.Wx, self.Wh, self.b = frozen(Wx), frozen(Wh), frozen(b)
-        self.proj_w, self.proj_b = frozen(proj_w), frozen(proj_b)
+        self.proj = proj
 
     @property
     def vocab_size(self):
@@ -52,7 +53,7 @@ class LanguageModel(nn.Module):
                           + self.enc_b)
 
     def project(self, h):
-        return dot_f32(h, self.proj_w, self.compute_dtype) + self.proj_b
+        return self.proj(h, self.compute_dtype)
 
     def forward_train(self, vectors, gt_seq):
         """Teacher forcing over T + 2 steps: (N, D) RoI codes and (N, T)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_pool import conv_relu_pool, extent_mask
+from ..ops.quant import QuantLinear
 
 # (name, out_channels) per conv; 'M' = 2x2/2 max pool.
 TRUNK1_CFG = [("conv1_1", 64), ("conv1_2", 64), "M",
@@ -68,6 +69,19 @@ def dot_f32(x, w, cd):
     if x.is_cuda:
         return _DotF32.apply(x, w, cd)
     return x.to(cd).float() @ w.to(cd).float()
+
+
+class Linear(nn.Module):
+    """A full-precision layer: weight (in, out) and f32 bias, `x @ w + b`
+    by `dot_f32`. Its quantized counterpart is `ops.quant.QuantLinear`;
+    both are called as `layer(x, compute_dtype)`."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w, self.b = frozen(w), frozen(b)
+
+    def forward(self, x, compute_dtype):
+        return dot_f32(x, self.w, compute_dtype) + self.b
 
 
 class Trunk(nn.Module):
@@ -126,22 +140,28 @@ class Trunk(nn.Module):
 
 class Recog(nn.Module):
     """fc6 -> ReLU -> dropout -> fc7 -> ReLU -> dropout on flattened
-    (7, 7, C) RoI features. Weights (in, out), biases f32."""
+    (7, 7, C) RoI features. Each layer is a `Linear` or, for int8
+    inference, a `QuantLinear` (JAX `apply_recog` dispatches the same
+    way)."""
 
-    def __init__(self, w6, b6, w7, b7, compute_dtype):
+    def __init__(self, fc6, fc7, compute_dtype):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.w6, self.b6 = frozen(w6), frozen(b6)
-        self.w7, self.b7 = frozen(w7), frozen(b7)
+        self.fc6, self.fc7 = fc6, fc7
 
     def forward(self, roi_feats, drop_prob=0.0, generator=None):
         """(N, 7, 7, C) -> (N, fc_dim) f32. drop_prob > 0 applies inverted
         dropout (keep with 1 - drop_prob, scale by 1 / (1 - drop_prob))
-        after each ReLU, drawn from `generator`."""
+        after each ReLU, drawn from `generator`; a quantized layer refuses
+        it, as training through it would starve its weights of gradient.
+        The input is cast to the compute dtype first, so a quantized fc6
+        sees the values the JAX quantizer sees."""
         cd = self.compute_dtype
         x = roi_feats.reshape(roi_feats.shape[0], -1).to(cd)
-        for w, b in ((self.w6, self.b6), (self.w7, self.b7)):
-            x = torch.relu(dot_f32(x, w, cd) + b)
+        for layer in (self.fc6, self.fc7):
+            if drop_prob > 0 and isinstance(layer, QuantLinear):
+                raise ValueError("quantized recog layers are inference-only")
+            x = torch.relu(layer(x, cd))
             if drop_prob > 0:
                 keep = torch.rand(x.shape, generator=generator,
                                   device=x.device) < 1.0 - drop_prob

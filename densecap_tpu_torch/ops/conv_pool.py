@@ -45,8 +45,9 @@ def conv_relu_pool_plain(x, w, b, eh, ew):
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def conv_relu_pool_cuda(x, w, b, eh, ew):
-    """Kernel K3 on CUDA tensors; same contract as `conv_relu_pool_plain`."""
+def prepare_cuda(x, w, b, eh, ew):
+    """The wrapper's work before K3: checks, the weight layout, the extents
+    and the output. -> (x NHWC view, weights, bias, extents, out NHWC)."""
     if not x.is_cuda:
         raise ValueError("conv_relu_pool_cuda takes CUDA tensors")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
@@ -69,15 +70,26 @@ def conv_relu_pool_cuda(x, w, b, eh, ew):
     wt = w.permute((2, 3, 0, 1) if x.dtype == torch.bfloat16
                    else (2, 3, 1, 0)).contiguous()
     ext = torch.stack([eh, ew], 1).float().contiguous()
-    bias = b.contiguous()
     out = torch.empty((B, H // 2, W // 2, C), dtype=x.dtype, device=x.device)
+    return x_nhwc, wt, b.contiguous(), ext, out
+
+
+def launch_cuda(x_nhwc, wt, bias, ext, out):
+    """One launch of K3 on prepared tensors (`prepare_cuda`); not counted."""
+    B, H, W, C = x_nhwc.shape
     rc = build.load().dc_conv_relu_pool(
         x_nhwc.data_ptr(), wt.data_ptr(), bias.data_ptr(), ext.data_ptr(),
-        B, H, W, C, _DTYPES[x.dtype], out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        B, H, W, C, _DTYPES[x_nhwc.dtype], out.data_ptr(),
+        torch.cuda.current_stream(x_nhwc.device).cuda_stream)
     build.check(rc, "conv_pool")
+
+
+def conv_relu_pool_cuda(x, w, b, eh, ew):
+    """Kernel K3 on CUDA tensors; same contract as `conv_relu_pool_plain`."""
+    args = prepare_cuda(x, w, b, eh, ew)
+    launch_cuda(*args)
     build.count_launch("conv_pool")
-    return out.permute(0, 3, 1, 2)
+    return args[-1].permute(0, 3, 1, 2)
 
 
 def conv_relu_pool(x, w, b, eh, ew):

@@ -6,8 +6,10 @@ POST /api/infer   body: {"image": "<base64 jpeg>", "stream": id} or raw
                   JPEG bytes (stream id in the X-Stream-Id header)
 GET  /            the browser webcam client (densecap_tpu/serve/static)
 
-Images are decoded with PIL. A failed warm-up is an error: the server
-does not start.
+A JPEG body is decoded in memory by the native pipeline
+(`native_lib.decode_jpeg_bytes`) when it builds; PNG, and anything it
+does not decode, goes to PIL. --quantize int8 serves fc6/fc7 in int8. A
+failed warm-up is an error: the server does not start.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from .. import native_lib
+from ..cli._common import add_quantize_flag, maybe_quantize
 from ..utils.checkpoint import load_checkpoint
 from .engine import InferenceEngine
 
@@ -32,6 +36,12 @@ _STATIC_DIR = os.path.join(
 
 
 def _decode_image(data):
+    """Image bytes -> (H, W, 3) uint8 RGB: libdcio's in-memory JPEG decode
+    first, PIL for PNG and for what it does not decode."""
+    if native_lib.is_available("dcio"):
+        rgb = native_lib.decode_jpeg_bytes(data)
+        if rgb is not None:
+            return rgb
     from PIL import Image
 
     with Image.open(io.BytesIO(data)) as im:
@@ -118,9 +128,11 @@ def main(argv=None):
     p.add_argument("--certfile", default="",
                    help="enable TLS (browser webcams need HTTPS off localhost)")
     p.add_argument("--keyfile", default="")
+    add_quantize_flag(p)
     args = p.parse_args(argv)
 
     params, meta, cfg = load_checkpoint(args.checkpoint)
+    params = maybe_quantize(params, args.quantize)
     cfg = cfg.replace(image_size=args.image_size,
                       test_max_proposals=args.num_proposals,
                       test_pre_nms_topk=args.pre_nms_topk)

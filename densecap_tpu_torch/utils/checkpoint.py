@@ -18,6 +18,12 @@
     it as the `.npz` that the JAX `load_params` and `load_params` here
     read.
 
+A tree that `ops.quant.quantize_for_inference` (or the JAX package's, as
+numpy) has quantized builds an int8 inference model: each quantized layer
+becomes a `QuantLinear` whose codes stay int8 and whose scales and bias
+stay f32. `to_torch(..., train=True)` refuses such a tree, and
+`from_torch` takes full-precision models only.
+
 Layouts: JAX conv kernels are HWIO and become OIHW; linear weights stay
 (in, out); the LSTM keeps torch-rnn's (i, f, o, g) gate order.
 """
@@ -34,7 +40,8 @@ from ..config import DenseCapConfig
 from ..models.densecap import DenseCap
 from ..models.lstm import LanguageModel
 from ..models.rpn import RPN
-from ..models.vgg16 import TRUNK1_CFG, TRUNK2_CFG, Recog, Trunk
+from ..models.vgg16 import TRUNK1_CFG, TRUNK2_CFG, Linear, Recog, Trunk
+from ..ops.quant import QuantLinear, is_quantized
 
 
 def _unflatten(flat):
@@ -178,6 +185,15 @@ def to_torch(params, cfg, device, train=False):
     def linear(p):
         return t(p["w"], wd), t(p["b"])
 
+    def layer(p):
+        """fc6, fc7 and the vocab projection: full precision or int8."""
+        if not is_quantized(p):
+            return Linear(*linear(p))
+        if train:
+            raise ValueError("a quantized params tree is inference-only: "
+                             "to_torch(..., train=True) refuses it")
+        return QuantLinear(p, device)
+
     def trunk(spec, tree):
         return Trunk(spec, {item[0]: conv(tree[item[0]], wd)
                             for item in spec if item != "M"}, cd)
@@ -189,13 +205,13 @@ def to_torch(params, cfg, device, train=False):
         trunk(TRUNK2_CFG, params["trunk2"]),
         RPN(conv(rp["conv"], torch.float32), conv(rp["box"], torch.float32),
             conv(rp["score"], torch.float32), cd),
-        Recog(*linear(params["recog"]["fc6"]),
-              *linear(params["recog"]["fc7"]), cd),
+        Recog(layer(params["recog"]["fc6"]), layer(params["recog"]["fc7"]),
+              cd),
         linear(params["objectness"]),
         linear(params["box_reg"]),
         LanguageModel(*linear(lm["img_enc"]), t(lm["embed"]),
                       t(lm["lstm"]["Wx"], wd), t(lm["lstm"]["Wh"], wd),
-                      t(lm["lstm"]["b"]), *linear(lm["proj"]), cd),
+                      t(lm["lstm"]["b"]), layer(lm["proj"]), cd),
     )
     if not train:
         return model.eval()
@@ -225,12 +241,12 @@ def from_torch(model):
         "rpn": {"conv": conv(rpn.conv_w, rpn.conv_b),
                 "box": conv(rpn.box_w, rpn.box_b),
                 "score": conv(rpn.score_w, rpn.score_b)},
-        "recog": {"fc6": {"w": n(rec.w6), "b": n(rec.b6)},
-                  "fc7": {"w": n(rec.w7), "b": n(rec.b7)}},
+        "recog": {"fc6": {"w": n(rec.fc6.w), "b": n(rec.fc6.b)},
+                  "fc7": {"w": n(rec.fc7.w), "b": n(rec.fc7.b)}},
         "objectness": {"w": n(model.obj_w), "b": n(model.obj_b)},
         "box_reg": {"w": n(model.box_w), "b": n(model.box_b)},
         "lm": {"img_enc": {"w": n(lm.enc_w), "b": n(lm.enc_b)},
                "embed": n(lm.embed_w),
                "lstm": {"Wx": n(lm.Wx), "Wh": n(lm.Wh), "b": n(lm.b)},
-               "proj": {"w": n(lm.proj_w), "b": n(lm.proj_b)}},
+               "proj": {"w": n(lm.proj.w), "b": n(lm.proj.b)}},
     }

@@ -9,6 +9,11 @@ device subtracts the VGG mean and zeroes the padding. uint8 to f32 is
 exact, so the result is bit-equal to the JAX package's f32 host path
 (`preprocess_for_model`). A canvas may be cropped to a smaller bucket
 that still holds the frame: the model's outputs do not change.
+
+`to_model_input` also takes canvases already normalized on the host (f32,
+mean subtracted, zero past the frame), as the native JPEG pipeline
+(`native_lib.load_batch`) writes them; the device takes those as they
+are.
 """
 
 from __future__ import annotations
@@ -76,15 +81,26 @@ def normalize_uint8_images(images, heights, widths):
 
 
 def to_model_input(canvases, heights, widths, device):
-    """B uint8 canvases (a list of (H, W, 3) or one (B, H, W, 3) array)
-    and their true sizes -> the model's inputs on `device`: normalized
-    f32 images (B, H, W, 3), heights (B,) and widths (B,) f32. Raises
-    ValueError for a size `check_frame_size` rejects."""
+    """B canvases (a list of (H, W, 3) or one (B, H, W, 3) array) and
+    their true sizes -> the model's inputs on `device`: normalized f32
+    images (B, H, W, 3), heights (B,) and widths (B,) f32.
+
+    uint8 canvases (BGR) are normalized on the device
+    (`normalize_uint8_images`). f32 canvases are taken as normalized
+    already, VGG mean subtracted and zero past each frame, and are moved
+    as they are; for the same pixels that is bit-equal to the uint8 path.
+    Raises ValueError for a size `check_frame_size` rejects, or another
+    dtype."""
     ims = np.stack(canvases)
     for hi, wi in zip(heights, widths):
         check_frame_size(hi, wi, ims.shape[1], ims.shape[2])
     h = torch.tensor(heights, dtype=torch.float32, device=device)
     w = torch.tensor(widths, dtype=torch.float32, device=device)
+    if ims.dtype == np.float32:
+        return torch.from_numpy(ims).to(device), h, w
+    if ims.dtype != np.uint8:
+        raise ValueError(f"canvases must be uint8 or normalized float32, "
+                         f"not {ims.dtype}")
     ims = torch.from_numpy(ims).to(device)
     return normalize_uint8_images(ims, h, w), h, w
 

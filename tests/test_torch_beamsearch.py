@@ -22,6 +22,7 @@ from densecap_tpu.models import densecap as jd
 from densecap_tpu.models import lstm as jl
 from densecap_tpu_torch.config import DenseCapConfig
 from densecap_tpu_torch.models.lstm import LanguageModel
+from densecap_tpu_torch.models.vgg16 import Linear
 from densecap_tpu_torch.utils.checkpoint import to_torch
 
 torch.set_num_threads(2)
@@ -43,7 +44,8 @@ def _port_lm(p):
     return LanguageModel(t(p["img_enc"]["w"]), t(p["img_enc"]["b"]),
                          t(p["embed"]), t(p["lstm"]["Wx"]),
                          t(p["lstm"]["Wh"]), t(p["lstm"]["b"]),
-                         t(p["proj"]["w"]), t(p["proj"]["b"]), torch.float32)
+                         Linear(t(p["proj"]["w"]), t(p["proj"]["b"])),
+                         torch.float32)
 
 
 # (weights seed, END logit bias), on logits of about +-0.1: with 0 some

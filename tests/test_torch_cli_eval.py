@@ -10,7 +10,12 @@ the validation gate of the port's train CLI.
     (fc6's summation order, as in test_torch_extract_features.py);
   * `evaluate_model`: map and detmap within 1e-6;
   * the train CLI evaluates at every interval, keeps `results_history`,
-    and writes the `.npz` only when val mAP improves.
+    and writes the `.npz` only when val mAP improves;
+  * `--quantize int8` on `run_model`, `extract_features` and
+    `evaluate_model` against the JAX CLIs with the same flag, to the same
+    tolerances, on a checkpoint whose trunk passes its input through
+    (`test_torch_quant.py`: last-bit feature differences would otherwise
+    flip a few int8 codes).
 
 Every port CLI runs with `--device cpu`; the JAX CLIs on the PIL path
 (`--native_io 0`).
@@ -36,6 +41,7 @@ from densecap_tpu_torch.cli import train as train_cli
 from densecap_tpu_torch.config import DenseCapConfig
 from densecap_tpu_torch.data.loader import DenseCapLoader
 from test_torch_eval import make_dataset, tiny_configs
+from test_torch_quant import _pass_through_trunk
 
 torch.set_num_threads(2)
 TOL = 1e-4
@@ -53,9 +59,10 @@ def setup(tmp_path_factory):
                        "idx_to_token": loader.info["idx_to_token"],
                        "config": jcfg.to_json()})
     loader.close()
-    jax_ckpt.save_params(str(root / "ck.npz"),
-                         jd.init_params(jax.random.PRNGKey(3), jcfg),
-                         extra={"meta": meta})
+    params = jd.init_params(jax.random.PRNGKey(3), jcfg)
+    jax_ckpt.save_params(str(root / "ck.npz"), params, extra={"meta": meta})
+    jax_ckpt.save_params(str(root / "ck_int8.npz"),
+                         _pass_through_trunk(params), extra={"meta": meta})
     # a second directory, of the images at other sizes
     frames = root / "frames"
     frames.mkdir()
@@ -139,6 +146,50 @@ def test_evaluate_model_matches_jax(setup, capsys):
     for key in ("map", "detmap"):
         assert got[key] == pytest.approx(ref[key], rel=0, abs=1e-6)
     assert np.isfinite(got["loss"])
+
+
+def test_run_model_int8_matches_jax(setup, tmp_path):
+    args = ["--checkpoint", str(setup / "ck_int8.npz"), "--input_dir",
+            str(setup / "frames"), "--quantize", "int8"] + COMMON
+    jax_run.main(args + ["--output_dir", str(tmp_path / "jax")])
+    run_model.main(args + ["--output_dir", str(tmp_path / "port"),
+                           "--device", "cpu"])
+    got = _results(tmp_path / "port" / "results.json")
+    assert len(got) == 4
+    _same_results(got, _results(tmp_path / "jax" / "results.json"))
+
+
+def test_extract_features_int8_matches_jax(setup, tmp_path):
+    args = ["--checkpoint", str(setup / "ck_int8.npz"), "--input_dir",
+            str(setup / "frames"), "--image_size", "64",
+            "--boxes_per_image", "6", "--quantize", "int8"]
+    jax_extract.main(args + ["--output_h5", str(tmp_path / "jax.h5")])
+    extract_features.main(args + ["--output_h5", str(tmp_path / "port.h5"),
+                                  "--device", "cpu"])
+    with h5py.File(tmp_path / "jax.h5") as ref, \
+            h5py.File(tmp_path / "port.h5") as got:
+        np.testing.assert_array_equal(got["valid"][:], ref["valid"][:])
+        assert got["valid"][:].any()
+        np.testing.assert_allclose(got["boxes"][:], ref["boxes"][:],
+                                   rtol=TOL, atol=TOL)
+        feats = ref["feats"][:]
+        np.testing.assert_allclose(got["feats"][:], feats, rtol=TOL,
+                                   atol=1e-5 * float(np.abs(feats).max()))
+
+
+def test_evaluate_model_int8_matches_jax(setup, capsys):
+    # the loss pass trains through fc6/fc7, which int8 refuses in both
+    args = ["--checkpoint", str(setup / "ck_int8.npz"), "--data_h5",
+            str(setup / "d.h5"), "--data_json", str(setup / "d.json"),
+            "--split", "val", "--max_gt_boxes", "4", "--num_proposals", "10",
+            "--quantize", "int8", "--skip_losses", "1"]
+    jax_evaluate.main(args)
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    evaluate_model.main(args + ["--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("map", "detmap"):
+        assert got[key] == pytest.approx(ref[key], rel=0, abs=1e-6)
+    assert got["loss"] is None and ref["loss"] is None
 
 
 def test_train_cli_saves_only_when_val_map_improves(setup, tmp_path,

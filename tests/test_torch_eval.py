@@ -138,9 +138,12 @@ def _random_image(rng):
 
 def test_evaluator_matches_jax(monkeypatch):
     from densecap_tpu import native_lib
+    from densecap_tpu_torch import native_lib as port_native_lib
 
-    # the JAX evaluator's numpy branch, which the port's twins
+    # both evaluators' numpy branches (test_torch_native.py holds the
+    # port's libdcgeom branch against its numpy one)
     monkeypatch.setattr(native_lib, "is_available", lambda name: False)
+    monkeypatch.setattr(port_native_lib, "is_available", lambda name: False)
     rng = np.random.default_rng(0)
     ours = evaluator.DenseCaptioningEvaluator()
     ref = jax_evaluator.DenseCaptioningEvaluator()

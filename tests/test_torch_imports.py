@@ -24,6 +24,9 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.cli.extract_features",
            "densecap_tpu_torch.cli.evaluate_model",
            "densecap_tpu_torch.utils.vis",
+           "densecap_tpu_torch.ops.quant",
+           "densecap_tpu_torch.serve.daemon",
+           "densecap_tpu_torch.native_lib",
            "chip_smoke"]
 
 

@@ -11,7 +11,8 @@ shapes: NMS picks identical, RoI align within 1e-5 on unit-scale
 features and its backward (K2b) within 1e-5 (d feats) and 1e-4 (d boxes)
 of the plain autograd gradient's scale, the fused conv+pool (K3) in f32 within 1e-4 and in
 bf16 no worse than the plain version against an f32 oracle, and each
-wrapper counting exactly its own launches.
+wrapper counting exactly its own launches; and the int8 product of
+`ops/quant.py` on the card identical to the CPU's.
 """
 
 import numpy as np
@@ -398,3 +399,30 @@ def test_conv_pool_kernel_has_no_gradient(dev):
                                w, torch.zeros(64, device=dev),
                                torch.ones(1, device=dev) * 4,
                                torch.ones(1, device=dev) * 4)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 37, 13), (16, 64, 48), (17, 256, 128),
+                                   (50, 25088, 4096), (300, 512, 10001)])
+def test_int8_qdot_on_card_matches_cpu(dev, M, K, N):
+    """The int8 product (torch._int_mm, not a kernel of this repository)
+    on the card at its shape rules' edges: M <= 16 and K, N off a multiple
+    of 8 are padded by `qdot`. Codes and int32 products identical to the
+    CPU's, outputs within rtol 1e-6."""
+    from densecap_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(M + K)
+    p = {"w": (rng.standard_normal((K, N)) * 0.02).astype(np.float32),
+         "b": (rng.standard_normal(N) * 0.01).astype(np.float32)}
+    x = torch.from_numpy(np.abs(rng.standard_normal((M, K))).astype(
+        np.float32)).bfloat16()
+    q = quant.quantize_linear(p)
+    layers = {d: quant.QuantLinear(q, d) for d in ("cpu", dev)}
+    codes = {d: quant.quantize_rows(x.to(d)) for d in layers}
+    assert torch.equal(codes[dev][0].cpu(), codes["cpu"][0])
+    assert torch.equal(codes[dev][1].cpu(), codes["cpu"][1])
+    acc = {d: quant.int_mm(codes[d][0], layers[d]) for d in layers}
+    assert torch.equal(acc[dev].cpu(), acc["cpu"])
+    got = quant.qdot(x.to(dev), layers[dev]).cpu()
+    ref = quant.qdot(x, layers["cpu"])
+    assert got.shape == (M, N)
+    assert torch.allclose(got, ref, rtol=1e-6, atol=0)
