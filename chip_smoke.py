@@ -1,6 +1,7 @@
 """Card-side check of the PyTorch port: kernels, full-width engine, HTTP,
-full-width training, evaluation, offline inference, int8 serving, the
-directory daemon and the native host I/O.
+full-width training (canvas buckets, the batch weight, resume, data
+parallel ranks, a profiler trace), evaluation, offline inference, int8
+serving, the directory daemon and the native host I/O.
 
     python3 chip_smoke.py [--before DIR]
 
@@ -20,18 +21,22 @@ its result on its own line; any failure raises and exits non-zero:
      plain version, the bound from this run's IoU tests and bytes, and
      the tiles walked in the longest image;
   4. K2 (RoI align) against its plain version at the inference shape
-     (8 x 1000 boxes) and the training shape (8 x 384), max abs error
+     (8 x 1000 boxes) and the training shape (8 x 384), and at the
+     training shape on the 544x720 bucket's 34x45 map, max abs error
      <= 1e-5; the same times and bound as K1, and F.grid_sample on the
      same positions (within 1e-4 of plain) as the library call;
   5. K3 (fused conv+ReLU+mask+pool) at trunk1's conv1_2 and conv2_2
-     shapes in bf16: its max abs error against an f32 oracle no more
+     shapes in bf16, on the 720 px square and on the 544x720 bucket
+     ((8,544,720,64), (8,272,360,128)): its max abs error against an f32
+     oracle no more
      than 1.25x the plain version's; in f32 within rtol 1e-4 of plain;
      the C launch alone (20 in a CUDA graph, as K1 / K2), one call
      through the wrapper, plain ms and TFLOP/s at both shapes; then
      trunk1's bf16
      forward at B = 8 (720 px canvas, 540x720 frames) with K3 and with
      cuDNN, printed only;
-  6. K2b (RoI-align backward) at the training shape against plain
+  6. K2b (RoI-align backward) at the training shape, on the square's
+     and the bucket's map, against plain
      autograd, in both instances (the positions alone, as while the
      trunk is frozen, and with d feats): d feats within 1e-5 and d boxes
      within 1e-4 of the reference gradient's largest entry; per instance
@@ -56,7 +61,26 @@ its result on its own line; any failure raises and exits non-zero:
      B = 8, K3 on): 6 steps with the trunk frozen, the finetune flip,
      2 more. Trunk1 must not move, trunk2 only after the flip; K2, K2b
      and K3 must launch, K2b's positions-only instance only before the
-     flip and its d feats instance only after;
+     flip and its d feats instance only after. Then:
+     [train buckets] the flagship step on 540x720 frames cropped to the
+     544x720 bucket against the 720x720 square, batches from
+     BucketedLoader's schedule over in-memory examples, 8 steps each in
+     turns (square, bucket, bucket, square): ms/step, images/s, peak
+     memory; [weight] a tiny f32 step with a repeat slot of weight 0
+     against the real frames alone, within [train reference]'s bounds;
+     [resume] two uninterrupted tiny steps give the floor, and a run
+     saved after step 1 (the .npz / .optim.pt pair under build/), loaded
+     and stepped must stay within it; [distributed] a world-1 NCCL group's
+     distributed step within the floor of the plain one, then two gloo
+     ranks in subprocesses sharing cuda:0 (K3 on, cuDNN off; global batch
+     4, a slot of weight 0, two steps with the flip between): bit-equal
+     ranks that launched K3, K2 and both K2b instances, each
+     step within [train reference]'s bounds of one process's on the whole
+     batch from the same state; [profile] torch.profiler over three
+     flagship frozen steps on the square and three on the bucket (traces
+     under build/profile): device time per step of each, the square's top
+     8 CUDA kernels with the bucket's time for each, and StageTimer
+     reports;
   9. evaluation: eval_split over 20 in-memory 540x720 / 720x540 frames
      with 1-30 captioned gt boxes each, at batch 8 (a tail of 4) and at
      batch 1 with the loss pass: images/s, the mAP dict, equal mAP
@@ -92,7 +116,8 @@ its result on its own line; any failure raises and exits non-zero:
 
 Phases 7 (and its thin-frame part), 9-11 and 13-15 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
-K2 must launch on each.
+K2 must launch on each. So do [train] and [train buckets], where K2, K2b
+and K3 must launch.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -102,9 +127,10 @@ K2b one F.grid_sample call (and its backward) on K2's clamped sample
 positions, held against the plain version; null for K1 and K3, which no
 single PyTorch call computes. K1, K2 and K2b also give "kernel_ms"
 (K2b: with d feats; both instances, with the earlier commit's times
-under --before, in "modes"). K3's entry gives the sum of its two stages
-in "kernel_ms" / "ms" / "plain_ms" / "bound_ms" (its cost per trunk1
-forward) and each stage under "shapes".
+under --before, in "modes"; the bucket's map under "bucket"). K3's entry
+gives the sum of its two square stages in "kernel_ms" / "ms" /
+"plain_ms" / "bound_ms" (its cost per trunk1 forward) and each stage,
+the bucket's too, under "shapes"; K2's shapes include the bucket's.
 """
 
 from __future__ import annotations
@@ -131,6 +157,7 @@ import torch
 
 from densecap_tpu_torch import native_lib
 from densecap_tpu_torch.config import DenseCapConfig
+from densecap_tpu_torch.data.loader import BATCH_KEYS, BucketedLoader
 from densecap_tpu_torch.eval.eval_split import eval_split
 from densecap_tpu_torch.models.vgg16 import (TRUNK1_CFG, Linear, Recog, Trunk,
                                              feat_extent)
@@ -140,12 +167,16 @@ from densecap_tpu_torch.ops import quant
 from densecap_tpu_torch.ops import roi_align as roi_mod
 from densecap_tpu_torch.ops.boxes import xcycwh_to_x1y1x2y2
 from densecap_tpu_torch.ops.cuda import build
-from densecap_tpu_torch.parallel.train_step import Trainer, batched_loss
+from densecap_tpu_torch.parallel import distributed
+from densecap_tpu_torch.parallel.train_step import Trainer
 from densecap_tpu_torch.serve import daemon
 from densecap_tpu_torch.serve.engine import InferenceEngine
 from densecap_tpu_torch.serve.server import make_handler
 from densecap_tpu_torch.utils.checkpoint import (from_torch, init_params,
-                                                 save_params, to_torch)
+                                                 load_train_state,
+                                                 save_params,
+                                                 save_train_state, to_torch)
+from densecap_tpu_torch.utils.profiling import StageTimer, device_trace
 
 ROOT = Path(__file__).resolve().parent
 B = 8
@@ -169,6 +200,11 @@ BWD_BOXES_TOL = 1e-4
 # the eight image sizes (h, w) of the K2 phase, on the 720 px canvas
 IMG_H = (720, 540, 720, 480, 700, 720, 360, 720)
 IMG_W = (540, 720, 720, 720, 500, 333, 720, 96)
+# the 544x720 canvas bucket of the 720 px square (34 x 45 feature cells;
+# it holds the 540x720 frames) and eight frame sizes that fit it
+BUCKET = (544, 720)
+BUCKET_IMG_H = (540, 540, 544, 480, 500, 544, 360, 540)
+BUCKET_IMG_W = (720, 720, 720, 720, 500, 333, 720, 96)
 
 
 def cuda_ms(fn, runs=10, warmup=2):
@@ -405,15 +441,18 @@ def roi_bytes(feats, rois, out_hw=(7, 7)):
 
 def phase_roi(dev):
     """K2 at the inference shape (8 x 1000 boxes) and the training shape
-    (8 x 384), on (8, 45, 45, 512) f32."""
+    (8 x 384) on (8, 45, 45, 512) f32, and at the training shape on the
+    544x720 bucket's (8, 34, 45, 512)."""
     rng = np.random.default_rng(2)
-    feats = torch.from_numpy(
-        rng.standard_normal((B, 45, 45, 512), dtype=np.float32)).to(dev)
-    img_h = torch.tensor(IMG_H, dtype=torch.float32, device=dev)
-    img_w = torch.tensor(IMG_W, dtype=torch.float32, device=dev)
-    fh, fw = feat_extent(img_h, img_w)
     shapes, err = [], 0.0
-    for k in (1000, 384):
+    for k, hw, sizes in ((1000, (45, 45), (IMG_H, IMG_W)),
+                         (384, (45, 45), (IMG_H, IMG_W)),
+                         (384, (34, 45), (BUCKET_IMG_H, BUCKET_IMG_W))):
+        feats = torch.from_numpy(rng.standard_normal(
+            (B, *hw, 512), dtype=np.float32)).to(dev)
+        img_h = torch.tensor(sizes[0], dtype=torch.float32, device=dev)
+        img_w = torch.tensor(sizes[1], dtype=torch.float32, device=dev)
+        fh, fw = feat_extent(img_h, img_w)
         bx = random_boxes(rng, k)
         bx[..., 2:] *= 1.5  # some boxes reach past the image edge
         boxes = torch.from_numpy(bx).to(dev)
@@ -437,7 +476,8 @@ def phase_roi(dev):
         nbytes = roi_bytes(feats, B * k)
         # 3 lerps of 4 operations per output element
         b_ms, b_by = bound_ms(nbytes, B * k * 49 * 512 * 12, H100_F32_TFLOPS)
-        print(f"[K2 roi_align] {B}x{k} boxes on (8,45,45,512) f32: max_abs_err "
+        label = f"{B}x{k} boxes, ({B},{hw[0]},{hw[1]},512) f32"
+        print(f"[K2 roi_align] {label}: max_abs_err "
               f"{e:.3e} (tol {ROI_TOL}); kernel alone {kern_ms:.4f} ms "
               f"({nbytes / kern_ms / 1e9:.2f} TB/s), through the wrapper "
               f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, grid_sample {l_ms:.4f} "
@@ -450,7 +490,7 @@ def phase_roi(dev):
             raise AssertionError(f"grid_sample differs from plain K2 by "
                                  f"{lib_e} > {ROI_LIBRARY_TOL}")
         err = max(err, e)
-        shapes.append({"shape": f"{B}x{k} boxes, (8,45,45,512) f32",
+        shapes.append({"shape": label,
                        "kernel_ms": kern_ms, "ms": k_ms, "plain_ms": p_ms,
                        "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by})
     head = shapes[0]
@@ -466,15 +506,22 @@ def phase_roi(dev):
 
 
 def phase_conv_pool(dev):
-    """K3 at trunk1's two fused stages, ragged extents."""
+    """K3 at trunk1's two fused stages, ragged extents: on the 720 px
+    square and on the 544x720 bucket."""
     g = torch.Generator(device=dev).manual_seed(5)
     worst, shapes = 0.0, []
-    for name, C, S, div in (("conv1_2+pool1", 64, 720, 1),
-                            ("conv2_2+pool2", 128, 360, 2)):
-        eh = torch.floor(torch.tensor(IMG_H, device=dev) / div)
-        ew = torch.floor(torch.tensor(IMG_W, device=dev) / div)
-        x = torch.randn((B, C, S, S), generator=g, device=dev).abs()
-        x = (x * cp.extent_mask(S, S, eh, ew, x.dtype)).contiguous(
+    Hb, Wb = BUCKET
+    for name, C, H, W, div, sizes in (
+            ("conv1_2+pool1", 64, 720, 720, 1, (IMG_H, IMG_W)),
+            ("conv2_2+pool2", 128, 360, 360, 2, (IMG_H, IMG_W)),
+            ("conv1_2+pool1 bucket", 64, Hb, Wb, 1,
+             (BUCKET_IMG_H, BUCKET_IMG_W)),
+            ("conv2_2+pool2 bucket", 128, Hb // 2, Wb // 2, 2,
+             (BUCKET_IMG_H, BUCKET_IMG_W))):
+        eh = torch.floor(torch.tensor(sizes[0], device=dev) / div)
+        ew = torch.floor(torch.tensor(sizes[1], device=dev) / div)
+        x = torch.randn((B, C, H, W), generator=g, device=dev).abs()
+        x = (x * cp.extent_mask(H, W, eh, ew, x.dtype)).contiguous(
             memory_format=torch.channels_last)
         w = torch.randn((C, C, 3, 3), generator=g, device=dev) * (
             2.0 / (9 * C)) ** 0.5
@@ -502,12 +549,13 @@ def phase_conv_pool(dev):
             prep = cp.prepare_cuda(xb, wb, bb, eh, ew)
             kern_ms = graph_ms(lambda: cp.launch_cuda(*prep))
             del prep
-        tflops = 2 * 9 * C * C * B * S * S / kern_ms / 1e9
+        tflops = 2 * 9 * C * C * B * H * W / kern_ms / 1e9
         # bf16 input and pooled output once, weights and bias once
         b_ms, b_by = bound_ms(
-            (B * S * S * C + B * (S // 2) ** 2 * C + 9 * C * C + C) * 2,
-            2 * 9 * C * C * B * S * S, H100_BF16_TFLOPS)
-        print(f"[K3 conv_pool] {name} ({B},{S},{S},{C}) bf16: max abs err vs "
+            (B * H * W * C + B * (H // 2) * (W // 2) * C + 9 * C * C + C) * 2,
+            2 * 9 * C * C * B * H * W, H100_BF16_TFLOPS)
+        label = f"{name} ({B},{H},{W},{C}) bf16"
+        print(f"[K3 conv_pool] {label}: max abs err vs "
               f"f32 oracle kernel {k_err:.4e} plain {p_err:.4e} (ratio "
               f"{k_err / p_err:.3f}, limit {CONV_POOL_RATIO}); f32 kernel vs "
               f"plain max abs {f32_err:.3e} within rtol {CONV_POOL_F32_RTOL}="
@@ -520,16 +568,17 @@ def phase_conv_pool(dev):
         if not (k_err <= CONV_POOL_RATIO * p_err and f32_ok):
             raise AssertionError(f"K3 disagrees with plain at {name}")
         worst = max(worst, kp_err)
-        shapes.append({"shape": f"{name} ({B},{S},{S},{C}) bf16",
+        shapes.append({"shape": label,
                        "kernel_ms": kern_ms, "ms": k_ms, "plain_ms": p_ms,
                        "tflops": tflops,
                        "bound_ms": b_ms, "bound_by": b_by})
     phase_trunk1(dev)
+    square = shapes[:2]  # the sums: one square trunk1 forward
     return {"max_abs_err": worst,
-            "kernel_ms": sum(s["kernel_ms"] for s in shapes),
-            "ms": sum(s["ms"] for s in shapes),
-            "plain_ms": sum(s["plain_ms"] for s in shapes),
-            "bound_ms": sum(s["bound_ms"] for s in shapes),
+            "kernel_ms": sum(s["kernel_ms"] for s in square),
+            "ms": sum(s["ms"] for s in square),
+            "plain_ms": sum(s["plain_ms"] for s in square),
+            "bound_ms": sum(s["bound_ms"] for s in square),
             "bound_by": shapes[0]["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes it: cuDNN's "
                             "conv, the bias, ReLU, the extent mask and the "
@@ -585,21 +634,38 @@ def k2b_before(parent):
 
 
 def phase_roi_bwd(dev, before=None):
-    """K2b at the training shape: 8 x 384 boxes on (8, 45, 45, 512). With
-    `before` (a checkout of an earlier commit), that commit's K2b is timed
-    alone too, before and after this one's."""
+    """K2b at the training shape, 8 x 384 boxes, on (8, 45, 45, 512) and
+    on the 544x720 bucket's (8, 34, 45, 512). With `before` (a checkout
+    of an earlier commit), that commit's K2b is timed alone too, before
+    and after this one's square case."""
     before_ms = [k2b_before(before)] if before else []
-    rng = np.random.default_rng(6)
+    out = roi_bwd_case(dev, (45, 45), (IMG_H, IMG_W), seed=6)
+    if before:
+        before_ms.append(k2b_before(before))
+    for mode in out["modes"]:
+        out["modes"][mode]["before_kernel_ms"] = [b[mode] for b in before_ms
+                                                  ] or None
+    out["bucket"] = roi_bwd_case(dev, (34, 45), (BUCKET_IMG_H, BUCKET_IMG_W),
+                                 seed=17)
+    return out
+
+
+def roi_bwd_case(dev, hw, sizes, seed):
+    """K2b on (8, *hw, 512) f32, 384 boxes per frame of `sizes` (heights,
+    widths), in both instances against plain autograd; the times and
+    bounds of each, and grid_sample's backward."""
+    rng = np.random.default_rng(seed)
     feats = torch.from_numpy(
-        rng.standard_normal((B, 45, 45, 512), dtype=np.float32)).to(dev)
-    img_h = torch.tensor(IMG_H, dtype=torch.float32, device=dev)
-    img_w = torch.tensor(IMG_W, dtype=torch.float32, device=dev)
+        rng.standard_normal((B, *hw, 512), dtype=np.float32)).to(dev)
+    img_h = torch.tensor(sizes[0], dtype=torch.float32, device=dev)
+    img_w = torch.tensor(sizes[1], dtype=torch.float32, device=dev)
     fh, fw = feat_extent(img_h, img_w)
     bx = random_boxes(rng, 384)
     bx[..., 2:] *= 1.5
     boxes = torch.from_numpy(bx).to(dev)
     gout = torch.from_numpy(
         rng.standard_normal((B, 384, 7, 7, 512), dtype=np.float32)).to(dev)
+    label = f"{B}x384 boxes on ({B},{hw[0]},{hw[1]},512) f32"
 
     def graph(fn, feats_grad):
         f = feats.clone().requires_grad_(feats_grad)
@@ -649,14 +715,12 @@ def phase_roi_bwd(dev, before=None):
         d_feats if mode == "d_feats" else None))
         for mode in ("frozen", "d_feats")}
     del d_feats
-    k_ms = cuda_ms(graph(roi_mod.roi_align_cuda, True))
-    p_ms = cuda_ms(graph(roi_mod.roi_align_plain, True))
+    wrap_ms = {"d_feats": cuda_ms(graph(roi_mod.roi_align_cuda, True)),
+               "frozen": cuda_ms(graph(roi_mod.roi_align_cuda, False))}
+    plain_ms = {"d_feats": cuda_ms(graph(roi_mod.roi_align_plain, True)),
+                "frozen": cuda_ms(graph(roi_mod.roi_align_plain, False))}
     l_ms = cuda_ms(lib_bwd)
     del lib_bwd
-    kc_ms = cuda_ms(graph(roi_mod.roi_align_cuda, False))
-    pc_ms = cuda_ms(graph(roi_mod.roi_align_plain, False))
-    if before:
-        before_ms.append(k2b_before(before))
     # g and the map read once, the position gradients (and d feats)
     # written once; per element of g ~16 f32 operations for the position
     # sums, ~24 with the four scatter weights and adds
@@ -669,40 +733,39 @@ def phase_roi_bwd(dev, before=None):
                                   H100_F32_TFLOPS)}
     f_err = errs["d_feats"]["d_feats"][1]
     b_err = max(e["d_boxes"][1] for e in errs.values())
-    print(f"[K2b roi_align_bwd] 8x384 boxes on (8,45,45,512) f32: d feats "
+    print(f"[K2b roi_align_bwd] {label}: d feats "
           f"err {f_err:.3e} (tol {BWD_FEATS_TOL}), d boxes err {b_err:.3e} "
           f"(tol {BWD_BOXES_TOL}), relative to the largest plain entry")
-    for mode, wrap_ms, plain_ms in (("frozen", kc_ms, pc_ms),
-                                    ("d_feats", k_ms, p_ms)):
+    for mode in ("frozen", "d_feats"):
         b_ms, b_by = bounds[mode]
-        print(f"[K2b roi_align_bwd] {mode}: kernel alone "
+        print(f"[K2b roi_align_bwd] {label}, {mode}: kernel alone "
               f"{kern_ms[mode]:.4f} ms "
               f"({(gout.numel() * 4 + feats.numel() * 4) / kern_ms[mode] / 1e9:.2f}"
-              f" TB/s of g and the map), through the wrapper {wrap_ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}) = "
-              f"{b_ms / kern_ms[mode]:.1%} of the kernel alone")
-    print(f"[K2b roi_align_bwd] grid_sample's backward {l_ms:.3f} ms (d feats "
-          f"err {lib_err:.3e}, tol {BWD_FEATS_TOL})")
+              f" TB/s of g and the map), through the wrapper "
+              f"{wrap_ms[mode]:.3f} ms, plain {plain_ms[mode]:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}) = {b_ms / kern_ms[mode]:.1%} of the "
+              f"kernel alone")
+    print(f"[K2b roi_align_bwd] {label}: grid_sample's backward {l_ms:.3f} ms "
+          f"(d feats err {lib_err:.3e}, tol {BWD_FEATS_TOL})")
     if not (f_err <= BWD_FEATS_TOL and b_err <= BWD_BOXES_TOL):
-        raise AssertionError("K2b disagrees with plain autograd")
+        raise AssertionError(f"K2b disagrees with plain autograd ({label})")
     if not lib_err <= BWD_FEATS_TOL:
-        raise AssertionError("grid_sample's d feats differ from plain")
-    return {"max_abs_err": max(v[0] for e in errs.values()
+        raise AssertionError(f"grid_sample's d feats differ from plain "
+                             f"({label})")
+    return {"shape": label,
+            "max_abs_err": max(v[0] for e in errs.values()
                                for v in e.values()),
-            "kernel_ms": kern_ms["d_feats"], "ms": k_ms, "plain_ms": p_ms,
+            "kernel_ms": kern_ms["d_feats"], "ms": wrap_ms["d_feats"],
+            "plain_ms": plain_ms["d_feats"],
             "bound_ms": bounds["d_feats"][0],
             "bound_by": bounds["d_feats"][1], "library_ms": l_ms,
             "library_note": "backward of F.grid_sample (align_corners=True, "
                             "K2's clamped positions as one grid per image) "
                             "to the map and the grid",
             "modes": {mode: {"kernel_ms": kern_ms[mode],
-                             "ms": {"frozen": kc_ms, "d_feats": k_ms}[mode],
-                             "plain_ms": {"frozen": pc_ms,
-                                          "d_feats": p_ms}[mode],
+                             "ms": wrap_ms[mode], "plain_ms": plain_ms[mode],
                              "bound_ms": bounds[mode][0],
-                             "bound_by": bounds[mode][1],
-                             "before_kernel_ms": [b[mode] for b in before_ms]
-                             or None}
+                             "bound_by": bounds[mode][1]}
                       for mode in ("frozen", "d_feats")}}
 
 
@@ -908,47 +971,79 @@ def to_dev(batch, dev):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
+def reference_batch(n=2):
+    """n 72x96 uint8 frames for TINY_TRAIN, the first two resized to
+    72x96 and 96x80, and the sampler's debug ordinals (seed 3)."""
+    rng = np.random.default_rng(3)
+    batch = make_train_batch(rng, TINY_TRAIN, n, (72, 96), 6)
+    batch["height"][:2] = torch.tensor([72.0, 96.0])
+    batch["width"][:2] = torch.tensor([96.0, 80.0])
+    dbg = {"pos": torch.from_numpy(rng.permutation(8)),
+           "neg": torch.from_numpy(rng.permutation(16))}
+    return batch, dbg
+
+
+def one_step(trainer, batch, dev, **kw):
+    """trainer.step on `batch` moved to dev -> (losses as floats,
+    {name: (parameter, gradient)} on the CPU)."""
+    losses = trainer.step(to_dev(batch, dev), **kw)
+    return ({k: float(v) for k, v in losses.items()},
+            {n: (p.detach().to("cpu", copy=True),
+                 p.grad.detach().to("cpu", copy=True))
+             for n, p in trainer.model.named_parameters()
+             if p.grad is not None})
+
+
+def step_diff(run, ref):
+    """Two `one_step` results: (the losses' largest relative error, the
+    updated parameters' largest difference, and that where |g| of `ref`
+    is large, above 1e-3 of its parameter's largest)."""
+    (lr_, pr), (lf, pf) = run, ref
+    loss_err = max(abs(lr_[k] - lf[k]) / max(abs(lf[k]), 1e-6) for k in lf)
+    worst_all = worst_big = 0.0
+    for n, (p_ref, g_ref) in pf.items():
+        diff = (pr[n][0] - p_ref).abs()
+        big = g_ref.abs() > 1e-3 * g_ref.abs().max()
+        worst_all = max(worst_all, float(diff.max()))
+        worst_big = max(worst_big, float(diff[big].max()) if big.any() else 0)
+    return loss_err, worst_all, worst_big
+
+
+def within_reference(errs, lr):
+    """The [train reference] bounds: losses rtol 1e-4; Adam's first update
+    is about -lr * sign(g), so entries with |g| near eps may differ by up
+    to 2 lr, and where |g| is large they agree to 1e-3 lr + 1e-6."""
+    loss_err, worst_all, worst_big = errs
+    return (loss_err <= 1e-4 and worst_all <= 2 * lr + 1e-6
+            and worst_big <= 1e-3 * lr + 1e-6)
+
+
+def describe(errs, lr):
+    return (f"losses max rel err {errs[0]:.2e} (tol 1e-4); updated params max "
+            f"diff {errs[1]:.2e} (bound 2 lr = {2 * lr:.0e}), where |g| is "
+            f"large {errs[2]:.2e} (bound {1e-3 * lr + 1e-6:.1e})")
+
+
 def phase_train_reference(dev, lr=1e-3):
     """One train step of a small f32 model (K3 on, sampler pinned by
     ordinals, dropout off) on the card against the CPU's plain path."""
     cfg = TINY_TRAIN
     params = init_params(cfg, seed=3)
-    rng = np.random.default_rng(3)
-    batch = make_train_batch(rng, cfg, 2, (72, 96), 6)
-    batch["height"] = torch.tensor([72.0, 96.0])
-    batch["width"] = torch.tensor([96.0, 80.0])
-    dbg = {"pos": torch.from_numpy(rng.permutation(8)),
-           "neg": torch.from_numpy(rng.permutation(16))}
-    runs = []
+    batch, dbg = reference_batch()
+    runs, trunk1 = [], []
     for d in (dev, torch.device("cpu")):
-        model = to_torch(params, cfg, d, train=True)
-        trainer = Trainer(model, learning_rate=lr)
-        losses = trainer.step(to_dev(batch, d), debug_sampler=to_dev(dbg, d))
-        runs.append(({k: float(v) for k, v in losses.items()},
-                     {n: (p.detach().cpu(), p.grad.cpu())
-                      for n, p in model.named_parameters()
-                      if p.grad is not None},
-                     from_torch(model)))
-    (lg, pg, tg), (lc, pc, tc) = runs
-    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
-    # Adam's first update is about -lr * sign(g): entries with |g| near
-    # eps may differ by up to 2 lr; where |g| is large they agree closely
-    worst_all = worst_big = 0.0
-    for n, (p_cpu, g_cpu) in pc.items():
-        diff = (pg[n][0] - p_cpu).abs()
-        big = g_cpu.abs() > 1e-3 * g_cpu.abs().max()
-        worst_all = max(worst_all, float(diff.max()))
-        worst_big = max(worst_big, float(diff[big].max()) if big.any() else 0)
-    same_trunk1 = all(np.array_equal(tg["trunk1"][k]["w"], tc["trunk1"][k]["w"])
-                      for k in tc["trunk1"])
+        trainer = Trainer(to_torch(params, cfg, d, train=True),
+                          learning_rate=lr)
+        runs.append(one_step(trainer, batch, d, debug_sampler=to_dev(dbg, d)))
+        trunk1.append(from_torch(trainer.model)["trunk1"])
+    errs = step_diff(*runs)
+    same_trunk1 = all(np.array_equal(trunk1[0][k]["w"], trunk1[1][k]["w"])
+                      for k in trunk1[1])
     print(f"[train reference] tiny f32 model, K3 on, one step card vs CPU: "
-          f"losses max rel err {loss_err:.2e} (tol 1e-4), total "
-          f"{lg['total_loss']:.6f} vs {lc['total_loss']:.6f}; updated params "
-          f"max diff {worst_all:.2e} (bound 2 lr = {2 * lr:.0e}), where |g| is "
-          f"large {worst_big:.2e} (bound {1e-3 * lr + 1e-6:.1e}); trunk1 "
-          f"unchanged on both={same_trunk1}")
-    if not (loss_err <= 1e-4 and worst_all <= 2 * lr + 1e-6
-            and worst_big <= 1e-3 * lr + 1e-6 and same_trunk1):
+          f"{describe(errs, lr)}; total {runs[0][0]['total_loss']:.6f} vs "
+          f"{runs[1][0]['total_loss']:.6f}; trunk1 unchanged on "
+          f"both={same_trunk1}")
+    if not (within_reference(errs, lr) and same_trunk1):
         raise AssertionError("the card's train step disagrees with the CPU")
 
 
@@ -1022,6 +1117,373 @@ def phase_train(dev, params, frozen_steps=6, finetune_steps=2):
     return launches
 
 
+def loader_batch(batch, dev):
+    """A BucketedLoader batch (numpy) as the train step's device tensors."""
+    out = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+           for k in (*BATCH_KEYS, "weight")}
+    out["gt_labels"] = out["gt_labels"].long()
+    return out
+
+
+def phase_train_buckets(dev, params, steps=8):
+    """The flagship train step (bf16, B = 8, K3 on, trunk frozen) on
+    540x720 frames, cropped to the 544x720 bucket against the 720x720
+    square, in turns: square, bucket, bucket, square, `steps` steps each.
+    The batches come from BucketedLoader's schedule over in-memory
+    examples."""
+    cfg = FLAGSHIP.replace(fuse_conv_pool=True)
+    mem = MemoryLoader(eval_examples(cfg, n=2 * B, sizes=((540, 720),),
+                                     seed=19), vocab=None)
+    loaders = {"square": BucketedLoader(mem, [], B),
+               "bucket": BucketedLoader(mem, [BUCKET], B)}
+    trainer = Trainer(to_torch(params, cfg, dev, train=True),
+                      learning_rate=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def run(kind, n):
+        times, shapes, totals = [], set(), []
+        for _ in range(n):
+            bucket, batch = loaders[kind].next_batch()
+            shapes.add(bucket)
+            batch = loader_batch(batch, dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = trainer.step(batch, generator=gen)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            totals.append(float(losses["total_loss"]))
+        return times, shapes, totals
+
+    for kind in loaders:  # warm-up: cuDNN's choices at each shape
+        run(kind, 1)
+    ms = {k: [] for k in loaders}
+    peak = {k: 0 for k in loaders}
+    seen = {k: set() for k in loaders}
+    totals, counts = [], None
+    for kind in ("square", "bucket", "bucket", "square"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "bucket" and counts is None:
+            (t, shp, tot), counts = read_launches(lambda: run("bucket", steps))
+        else:
+            t, shp, tot = run(kind, steps)
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
+        ms[kind].append(t)
+        seen[kind] |= shp
+        totals += tot
+    med = {k: statistics.median(sum(v, [])) for k, v in ms.items()}
+    share = BUCKET[0] * BUCKET[1] / cfg.image_size ** 2
+    for kind in loaders:
+        print(f"[train buckets] {kind} {sorted(seen[kind])}: ms/step median "
+              f"{med[kind]:.2f} (runs {', '.join(f'{statistics.median(t):.2f}' for t in ms[kind])}; "
+              f"min {min(sum(ms[kind], [])):.2f}, max "
+              f"{max(sum(ms[kind], [])):.2f}), {B * 1000 / med[kind]:.2f} "
+              f"images/s, peak device memory {peak[kind] / 2**30:.2f} GiB")
+    print(f"[train buckets] flagship B={B}, 540x720 frames, bf16, K3 on, "
+          f"trunk frozen, order square, bucket, bucket, square, {steps} steps "
+          f"each: bucket / square ms/step {med['bucket'] / med['square']:.3f} "
+          f"(the bucket holds {share:.1%} of the square's pixels); "
+          f"launches on the bucket path {counts}")
+    if seen != {"square": {(cfg.image_size,) * 2}, "bucket": {BUCKET}}:
+        raise AssertionError(f"the schedule gave other canvases: {seen}")
+    if not all(np.isfinite(totals)):
+        raise AssertionError(f"non-finite training loss: {totals}")
+    need_launches(counts, ("conv_pool", "roi_align", "roi_align_bwd"),
+                  "train buckets")
+    return counts, {"ms_per_step": med, "runs_ms": ms, "peak_bytes": peak,
+                    "pixel_share": share}
+
+
+def phase_weight(dev, lr=1e-3):
+    """A tiny f32 step (K3 on, sampler pinned, dropout off) where a third
+    slot of weight 0 repeats the first frame, against the two real frames
+    alone."""
+    cfg = TINY_TRAIN
+    params = init_params(cfg, seed=3)
+    batch, dbg = reference_batch()
+    padded = {k: torch.cat([v, v[:1]]) for k, v in batch.items()}
+    padded["weight"] = torch.tensor([1.0, 1.0, 0.0])
+    runs = [one_step(Trainer(to_torch(params, cfg, dev, train=True),
+                             learning_rate=lr), b, dev,
+                     debug_sampler=to_dev(dbg, dev)) for b in (padded, batch)]
+    errs = step_diff(*runs)
+    print(f"[weight] tiny f32 step with a repeat slot of weight 0 against "
+          f"the real frames alone: {describe(errs, lr)}; num_pos "
+          f"{runs[0][0]['stats/num_pos']:.1f} vs {runs[1][0]['stats/num_pos']:.1f}")
+    if not within_reference(errs, lr):
+        raise AssertionError("a slot of weight 0 changed the update")
+
+
+def params_of(trainer):
+    return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+
+def max_diff(a, b):
+    return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+
+def phase_resume(dev, lr=1e-3):
+    """TINY_TRAIN, two steps: the floor is the largest parameter
+    difference between two identical uninterrupted runs (cuDNN's weight
+    gradient may be nondeterministic); a run saved after its first step
+    (the .npz / .optim.pt pair under build/) and resumed must take the
+    second step within that floor of the uninterrupted one. Returns the
+    floor."""
+    cfg = TINY_TRAIN
+    params = init_params(cfg, seed=3)
+    batch = to_dev(reference_batch()[0], dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        prefix = str(Path(tmp) / "resume")
+        ends = []
+        for save in (False, True):
+            t = Trainer(to_torch(params, cfg, dev, train=True),
+                        learning_rate=lr)
+            t.step(batch, generator=gen(1))
+            if save:
+                save_train_state(prefix, t, 1, json.dumps({}))
+            t.step(batch, generator=gen(2))
+            ends.append(params_of(t))
+        floor = max_diff(*ends)
+        model, state = load_train_state(prefix, cfg, dev)
+        resumed = Trainer(model, learning_rate=lr)
+        resumed.load_state_dict(state)
+        resumed.step(batch, generator=gen(2))
+    err = max_diff(params_of(resumed), ends[1])
+    print(f"[resume] tiny f32, two steps: floor (two uninterrupted runs) "
+          f"{floor:.3e}; saved after step 1, loaded, step 2: {err:.3e} from "
+          f"the uninterrupted run (iter {state['iter']}, count "
+          f"{resumed.count})")
+    if not (err <= floor and state["iter"] == 1 and resumed.count == 2):
+        raise AssertionError("the resumed step left the uninterrupted one")
+    return floor
+
+
+def dist_batch():
+    """A global batch of 4 for TINY_TRAIN: three frames and a repeat of
+    the first at weight 0, and the sampler's debug ordinals."""
+    batch, dbg = reference_batch(3)
+    batch = {k: torch.cat([v, v[:1]]) for k, v in batch.items()}
+    batch["weight"] = torch.tensor([1.0, 1.0, 1.0, 0.0])
+    return batch, dbg
+
+
+def dist_trainer(dev, lr, snapshot=None):
+    """A Trainer over TINY_TRAIN's seed-3 parameters, or over those of a
+    `dist_step` snapshot with its optimizer state (distributed when the
+    process group is up)."""
+    model = to_torch(init_params(TINY_TRAIN, seed=3), TINY_TRAIN, dev,
+                     train=True)
+    if snapshot is not None:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(snapshot["params"][n])
+    trainer = Trainer(model, learning_rate=lr)
+    if snapshot is not None:
+        trainer.load_state_dict(snapshot["state"])
+    return trainer
+
+
+def dist_step(trainer, batch, dbg, i, dev):
+    """Step i (the finetune flip before step 1) -> a snapshot on the CPU:
+    parameters, optimizer state, losses and the step's gradients."""
+    if i == 1:
+        trainer.set_finetune(True)
+    run = one_step(trainer, batch, dev, debug_sampler=to_dev(dbg, dev))
+    state = trainer.state_dict()
+    # a copy: the packed state's entries are the optimizer's own dicts
+    state["optimizer"]["state"] = {
+        i: {k: v.detach().cpu().clone() for k, v in st.items()}
+        for i, st in state["optimizer"]["state"].items()}
+    return {"params": {n: p.to("cpu", copy=True)
+                       for n, p in params_of(trainer).items()},
+            "state": state, "losses": run[0], "run": run}
+
+
+def dist_worker(rank, init, out, lr=1e-3):
+    """One of two gloo ranks sharing cuda:0 (a subprocess of
+    phase_distributed): two steps on its half of dist_batch."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.enabled = False  # see phase_distributed
+    distributed.initialize(init_method=init, num_processes=2, process_id=rank,
+                           device=dev, backend="gloo")
+    try:
+        batch, dbg = dist_batch()
+        local = {k: v[2 * rank:2 * rank + 2] for k, v in batch.items()}
+        trainer = dist_trainer(dev, lr)
+        assert trainer.distributed
+        build.reset_launches()
+        steps = [dist_step(trainer, local, dbg, i, dev) for i in range(2)]
+        torch.save({"steps": steps, "launches": dict(build.launches)}, out)
+    finally:
+        distributed.shutdown()
+
+
+def phase_distributed(dev, floor, lr=1e-3):
+    """A world-1 NCCL group (distributed.initialize) whose distributed
+    step must equal the plain Trainer's within the [resume] floor; then
+    two gloo ranks in subprocesses sharing cuda:0, a global batch of 4
+    with a slot of weight 0, two steps with the flip between: the ranks
+    bit-equal, and each step within the [train reference] bounds of one
+    process's step on the whole batch from the same state. (NCCL refuses
+    two ranks on one GPU.) The ranks and that process run without cuDNN:
+    cuDNN picks its conv algorithm by the batch's size, and the sampler
+    thresholds the IoU of the RPN's proposals, so a rounding difference
+    there can swap a sampled box; PyTorch's own conv computes each image
+    alone, the same in a batch of 2 and of 4. Trunk1's fused stages still
+    run K3 (on the NCHW maps that conv writes), and the ranks must have
+    launched K3, K2 and K2b."""
+    batch, dbg = dist_batch()
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        # [resume]'s model: the plain Trainer is built before the group is
+        # up, the distributed one inside it
+        trainers = [Trainer(to_torch(init_params(TINY_TRAIN, seed=3),
+                                     TINY_TRAIN, dev, train=True),
+                            learning_rate=lr)]
+        distributed.initialize(init_method=f"file://{tmp}/nccl",
+                               num_processes=1, process_id=0, device=dev)
+        try:
+            backend = torch.distributed.get_backend()
+            trainers.append(Trainer(to_torch(init_params(TINY_TRAIN, seed=3),
+                                             TINY_TRAIN, dev, train=True),
+                                    learning_rate=lr))
+            ends = []
+            for t in trainers:
+                t.step(to_dev(batch, dev), debug_sampler=to_dev(dbg, dev))
+                ends.append(params_of(t))
+        finally:
+            distributed.shutdown()
+        err = max_diff(*ends)
+        print(f"[distributed] world-1 {backend} group: the distributed step "
+              f"against the plain Trainer's, max parameter diff {err:.3e} "
+              f"(floor {floor:.3e})")
+        if not (backend == "nccl" and trainers[1].distributed
+                and not trainers[0].distributed and err <= floor):
+            raise AssertionError("the world-1 distributed step differs")
+
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist_rank",
+             str(r), "--dist_init", f"file://{tmp}/gloo", "--dist_out",
+             f"{tmp}/rank{r}"], cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, out in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"a gloo rank failed:\n{out[-4000:]}")
+        saved = [torch.load(f"{tmp}/rank{r}", map_location="cpu",
+                            weights_only=True) for r in (0, 1)]
+    ranks = [s["steps"] for s in saved]
+    for s in saved:
+        need_launches(s["launches"], ("conv_pool", "roi_align",
+                                      "roi_align_bwd", "roi_align_bwd_feats"),
+                      "distributed")
+    wall = time.perf_counter() - t0
+    equal = all(a["losses"] == b["losses"] and all(
+        torch.equal(p, b["params"][n]) for n, p in a["params"].items())
+        for a, b in zip(*ranks))
+    worst = [0.0, 0.0, 0.0]
+    with torch.backends.cudnn.flags(enabled=False):
+        for i, got in enumerate(ranks[0]):
+            ref = dist_step(dist_trainer(dev, lr, ranks[0][i - 1] if i
+                                         else None), batch, dbg, i, dev)
+            errs = step_diff(got["run"], ref["run"])
+            worst = [max(a, b) for a, b in zip(worst, errs)]
+    print(f"[distributed] two gloo ranks on cuda:0, global batch 4 (one slot "
+          f"of weight 0), two steps, the flip between ({wall:.1f} s with the "
+          f"processes' start; rank 0's launches {saved[0]['launches']}): "
+          f"ranks bit-equal={equal}; each step against one "
+          f"process on the whole batch from the same state: "
+          f"{describe(worst, lr)}")
+    if not (equal and within_reference(worst, lr)):
+        raise AssertionError("the gloo ranks disagree")
+
+
+def device_kernels(prof):
+    """{kernel or copy name: (device us, calls)} of a torch.profiler run,
+    without user annotations (their spans cover the kernels inside)."""
+    out = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return out
+
+
+def phase_profile(dev, params, steps=3):
+    """torch.profiler over `steps` flagship frozen train steps on the
+    720x720 square and `steps` on the 544x720 bucket (traces under
+    build/profile): device time per step of each, the square's top 8
+    CUDA kernels by time with the bucket's time for the same kernel, and
+    a StageTimer report of each."""
+    cfg = FLAGSHIP.replace(fuse_conv_pool=True)
+    rng = np.random.default_rng(18)
+    batches = [make_train_batch(rng, cfg, B, (540, 720), 30)
+               for _ in range(steps + 1)]
+    trainer = Trainer(to_torch(params, cfg, dev, train=True),
+                      learning_rate=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    runs = {}
+    for kind, (bh, bw) in (("square", (cfg.image_size,) * 2),
+                           ("bucket", BUCKET)):
+        crop = [dict(b, image=b["image"][:, :bh, :bw].contiguous())
+                for b in batches]
+        trainer.step(to_dev(crop[0], dev), generator=gen)  # warm-up
+        timer = StageTimer()
+        trace_dir = ROOT / "build" / "profile" / kind
+        with device_trace(str(trace_dir), cuda=True) as prof:
+            for b in crop[1:]:
+                with timer.stage("data"):
+                    b = to_dev(b, dev)
+                    torch.cuda.synchronize()
+                with timer.stage("step"):
+                    trainer.step(b, generator=gen)
+                    torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        device_ms = sum(us for us, _ in kern.values()) / 1e3 / steps
+        wall_ms = timer.times["step"] * 1e3 / steps
+        runs[kind] = {"kernels": kern, "device_ms_per_step": device_ms,
+                      "step_ms": wall_ms, "report": timer.report(),
+                      "traces": sorted(p.name for p in
+                                       trace_dir.glob("*.pt.trace.json"))}
+        print(f"[profile] {kind} {bh}x{bw}: {steps} flagship frozen train "
+              f"steps (B={B}, 540x720 frames, bf16, K3 on) under "
+              f"torch.profiler: {len(kern)} CUDA kernels and copies, "
+              f"{device_ms:.2f} ms device time per step of {wall_ms:.2f} ms "
+              f"wall (busy {device_ms / wall_ms:.1%}); {timer.report()}; "
+              f"trace {runs[kind]['traces']}")
+    sq, bk = runs["square"]["kernels"], runs["bucket"]["kernels"]
+    top = []
+    for name, (us, n) in sorted(sq.items(), key=lambda kv: -kv[1][0])[:8]:
+        ms, b_ms = us / 1e3 / steps, bk.get(name, (0.0, 0))[0] / 1e3 / steps
+        top.append({"kernel": name[:120], "ms_per_step": ms,
+                    "calls_per_step": n / steps, "bucket_ms_per_step": b_ms})
+        print(f"[profile]   {ms:7.3f} ms/step (bucket {b_ms:7.3f}) "
+              f"{n / steps:6.1f} calls "
+              f"{ms / runs['square']['device_ms_per_step']:6.1%}  "
+              f"{name[:100]}")
+    if not all(r["kernels"] and r["traces"] for r in runs.values()):
+        raise AssertionError("torch.profiler recorded no CUDA kernel")
+    return {"top": top, **{k: {f: r[f] for f in ("device_ms_per_step",
+                                                 "step_ms", "report")}
+                           for k, r in runs.items()}}
+
+
 def phase_http(engine, frames):
     try:
         from PIL import Image
@@ -1055,12 +1517,21 @@ def phase_http(engine, frames):
 
 class MemoryLoader:
     """The split API of the port's DenseCapLoader over examples held in
-    memory (the card machine has no h5py). Every split is the one list."""
+    memory (the card machine has no h5py), with the metadata protocol
+    that BucketedLoader schedules from. Every split is the one list."""
 
     def __init__(self, examples, vocab):
         self.examples = examples
         self.vocab = vocab
         self.pos = 0
+        self.canvas = examples[0]["image"].shape[0]
+
+    def example_meta(self, split, ri):
+        ex = self.examples[ri]
+        return int(ex["height"]), int(ex["width"])
+
+    def get_example_at(self, split, ri):
+        return self.examples[ri]
 
     def idx_to_token(self):
         return self.vocab
@@ -1077,17 +1548,18 @@ class MemoryLoader:
         return ex
 
 
-def eval_examples(cfg, n=20):
-    """n uint8 canvases of landscape and portrait 3:4 frames (540x720 and
-    720x540 at 720 px; alternating) with 1-30 gt boxes and captions each,
-    from a seed, as loader examples."""
-    rng = np.random.default_rng(9)
+def eval_examples(cfg, n=20, sizes=None, seed=9):
+    """n uint8 canvases with 1-30 gt boxes and captions each, from a
+    seed, as loader examples: frames of `sizes` in turn, by default
+    landscape and portrait 3:4 (540x720 and 720x540 at 720 px)."""
+    rng = np.random.default_rng(seed)
     S = cfg.image_size
-    halves = [make_train_batch(rng, cfg, n // 2, hw, 30)
-              for hw in ((S * 3 // 4, S), (S, S * 3 // 4))]
+    sizes = sizes or ((S * 3 // 4, S), (S, S * 3 // 4))
+    parts = [make_train_batch(rng, cfg, -(-n // len(sizes)), hw, 30)
+             for hw in sizes]
     examples = []
     for i in range(n):
-        batch, j = halves[i % 2], i // 2
+        batch, j = parts[i % len(sizes)], i // len(sizes)
         ex = {k: v[j].numpy() for k, v in batch.items()}
         ex.update(ix=i, filename=f"frame{i}.jpg", split_pos=(i, n))
         examples.append(ex)
@@ -1610,7 +2082,15 @@ def main(argv=None):
                     help="a checkout of an earlier commit (e.g. a git "
                          "archive of the parent): its K2b is timed alone "
                          "beside this one's")
+    # one rank of the [distributed] phase's gloo pair (its subprocesses)
+    ap.add_argument("--dist_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist_init", help=argparse.SUPPRESS)
+    ap.add_argument("--dist_out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dist_rank is not None:
+        dist_worker(args.dist_rank, args.dist_init, args.dist_out)
+        return
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -1626,6 +2106,12 @@ def main(argv=None):
     serve = phase_engine(dev, params)
     phase_train_reference(dev)
     train = phase_train(dev, params)
+    bucket_counts, buckets = phase_train_buckets(dev, params)
+    phase_weight(dev)
+    floor = phase_resume(dev)
+    phase_distributed(dev, floor)
+    profile = phase_profile(dev, params)
+    torch.cuda.empty_cache()
     vocab = {i: f"w{i}" for i in range(1, FLAGSHIP.vocab_size + 1)}
     # set-up: `make -C native` runs here, not inside a timed phase (the
     # evaluator loads libdcgeom at its first image)
@@ -1643,9 +2129,13 @@ def main(argv=None):
     paths["daemon"] = phase_daemon(dev, params, vocab)
     (paths["run_model --native_io 1"], paths["run_model --native_io 0"],
      decode_s) = phase_run_model(dev, params, vocab, native)
+    print(f"[train buckets] summary {json.dumps(buckets)}")
+    print(f"[profile] summary {json.dumps(profile)}")
     print(f"[int8] summary {json.dumps(int8)}")
     print("[native] summary " + json.dumps(
         {"libraries": native, "decode_s_per_image": decode_s}))
+    paths["train"] = train
+    paths["train buckets"] = bucket_counts
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",
@@ -1665,11 +2155,17 @@ def main(argv=None):
          "launches_by_instance": {
              "positions (frozen trunk)": train["roi_align_bwd"],
              "positions + d feats": train["roi_align_bwd_feats"]},
+         "launches_by_path": {
+             p: paths[p]["roi_align_bwd"] + paths[p]["roi_align_bwd_feats"]
+             for p in ("train", "train buckets")},
          **k2b},
         {"name": "conv_pool", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/conv_pool.cu",
          "replaces": "densecap_tpu/ops/pallas/conv_pool_kernel.py:273",
-         "launches": train["conv_pool"], **k3},
+         "launches": train["conv_pool"],
+         "launches_by_path": {p: paths[p]["conv_pool"]
+                              for p in ("train", "train buckets")},
+         **k3},
     ]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

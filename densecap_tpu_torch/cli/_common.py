@@ -7,8 +7,10 @@ import torch
 # What the JAX package's CLIs offer and these do not (yet).
 NOT_PORTED = (
     "Flags of the JAX CLIs left out of this one: --data_parallel "
-    "(multi-device evaluation and serving) and --roi_align / "
-    "--pallas_roi_align (TPU formulations of RoI align).")
+    "(multi-device evaluation and serving; still to come), --roi_align / "
+    "--pallas_roi_align (TPU formulations of RoI align), --model_parallel "
+    "(tensor parallelism, densecap_tpu/parallel/mesh.py) and --uint8_pipe "
+    "0 (the port always feeds uint8 canvases).")
 
 
 def resolve_device(name):

@@ -3,12 +3,14 @@ canvases.
 
 Twin of the raw-uint8 path of `densecap_tpu/data/loader.py`
 (`DenseCapLoader(raw_images=True)`, with the split API that evaluation
-and the CLIs use) and of its `PrefetchingLoader`. Images come back as the
-h5's uint8 BGR canvases (S, S, 3); the model's caller normalizes them on
+and the CLIs use, its round-robin `shard`, `BucketedLoader` and
+`PrefetchingLoader`). Images come back as the h5's uint8 BGR canvases
+(S, S, 3), or cropped to a bucket; the model's caller normalizes them on
 the device (`utils/image.py:normalize_uint8_images`).
 Ground truth is padded to `max_gt_boxes` rows with a validity mask (and
 uniformly subsampled when an image has more). `h5py` is imported when a
-loader is made, not with this module.
+loader is made, not with this module. The JAX loader's external region
+proposals (`proposals_h5`) are not ported: the model never reads them.
 """
 
 from __future__ import annotations
@@ -24,9 +26,14 @@ BATCH_KEYS = ("image", "height", "width", "gt_boxes", "gt_labels", "gt_valid")
 
 class DenseCapLoader:
     """Reads the preprocessed HDF5 and its dicts json (the schema of
-    `densecap_tpu/data/preprocess.py`)."""
+    `densecap_tpu/data/preprocess.py`).
 
-    def __init__(self, h5_path, json_path, max_gt_boxes=128, seed=0):
+    shard: optional (process_id, num_processes); the loader then sees
+    only every num_processes-th example of each split (round-robin), the
+    per-process feed of multi-process training."""
+
+    def __init__(self, h5_path, json_path, max_gt_boxes=128, seed=0,
+                 shard=None):
         import h5py
 
         self.h5 = h5py.File(h5_path, "r")
@@ -44,6 +51,12 @@ class DenseCapLoader:
         self.img_to_last_box = self.h5["img_to_last_box"][:]
         split = self.h5["split"][:]
         self.split_ix = {s: np.nonzero(split == s)[0] for s in (0, 1, 2)}
+        if shard is not None:
+            pid, nproc = shard
+            if not 0 <= pid < nproc:
+                raise ValueError(f"shard {shard}: need 0 <= pid < nproc")
+            self.split_ix = {s: ix[pid::nproc]
+                             for s, ix in self.split_ix.items()}
         self.iterators = {0: 0, 1: 0, 2: 0}
         self.canvas = self.h5["images"].shape[2]
 
@@ -62,11 +75,15 @@ class DenseCapLoader:
     def split_size(self, split):
         return len(self.split_ix[split])
 
+    def example_meta(self, split, ri):
+        """(height, width) on the canvas of the example at position ri of
+        a split: metadata only, no image read (the bucket schedule)."""
+        ix = int(self.split_ix[split][ri])
+        return int(self.image_heights[ix]), int(self.image_widths[ix])
+
     def get_example(self, split=0, iterate=True):
         """One padded example (host numpy): the split's next, in order and
-        wrapping at the end, or with `iterate=False` one drawn at random.
-        Besides the batch keys it carries the dataset index `ix`, the
-        image's `filename` and `split_pos` (position, split size)."""
+        wrapping at the end, or with `iterate=False` one drawn at random."""
         ix_list = self.split_ix[split]
         if not len(ix_list):
             raise ValueError(f"split {split} is empty")
@@ -75,6 +92,14 @@ class DenseCapLoader:
             self.iterators[split] = (ri + 1) % len(ix_list)
         else:
             ri = self.rng.randint(len(ix_list))
+        return self.get_example_at(split, ri)
+
+    def get_example_at(self, split, ri):
+        """The example at position ri of a split; the split's iterator is
+        left alone. Besides the batch keys it carries the dataset index
+        `ix`, the image's `filename` and `split_pos` (position, split
+        size)."""
+        ix_list = self.split_ix[split]
         ix = int(ix_list[ri])
         image = self.h5["images"][ix].transpose(1, 2, 0)  # (S, S, 3) uint8
         r0 = int(self.img_to_first_box[ix]) - 1  # 1-indexed inclusive
@@ -109,18 +134,153 @@ class DenseCapLoader:
         self.h5.close()
 
 
-class PrefetchingLoader:
-    """A background thread that keeps `depth` batches ready. A failure
-    to read is raised by `next` in the consumer's thread."""
+class BucketedLoader:
+    """Canvas-bucketed batching (twin of the JAX `BucketedLoader`).
 
-    def __init__(self, loader, batch_size, split=0, depth=2):
+    Buckets are (bh, bw) canvas shapes; the full S x S square is always
+    added as the fallback. Each image goes to the smallest-area bucket
+    that holds its extent, batches form per bucket, and each batch's
+    canvases are cropped to its bucket (the h5 canvas is top-left
+    aligned, so nothing of the image is lost).
+
+    Nothing is dropped: when the split wraps (the epoch's end), every
+    pending example is flushed through the square, and a partial batch
+    is padded by repeating its examples with weight 0, so each example of
+    a finite split trains exactly once an epoch. Batches carry `weight`,
+    which the train step's loss mean honours.
+
+    The schedule is computed from metadata only (`loader.example_meta`).
+    With shard=(process_id, num_processes) every process runs the same
+    schedule over the same unsharded split and loads only its contiguous
+    slice of each global batch, so all processes agree on every step's
+    bucket without talking to each other.
+    """
+
+    def __init__(self, loader, buckets, batch_size, split=0, iterate=True,
+                 shard=None, seed=0):
+        """batch_size is the global batch when shard is given (the loader
+        must then be unsharded); this process loads batch_size //
+        num_processes examples a batch."""
+        S = loader.canvas
+        self.loader = loader
+        self.buckets = sorted(set(tuple(b) for b in buckets) | {(S, S)},
+                              key=lambda b: b[0] * b[1])
+        self.batch_size = batch_size
+        self.split = split
+        self.iterate = iterate
+        self.shard = shard
+        if shard is not None:
+            pid, nproc = shard
+            if not (0 <= pid < nproc and batch_size % nproc == 0):
+                raise ValueError(f"shard {shard} of batch {batch_size}")
+        # random mode draws from its own seeded stream, the same in every
+        # shard replica
+        self.rng = np.random.RandomState(seed)
+        self.pos = 0
+        self.pending = {b: [] for b in self.buckets}  # split positions
+        self._flush_queue = []
+
+    def _bucket_for(self, h, w):
+        for bh, bw in self.buckets:
+            if h <= bh and w <= bw:
+                return (bh, bw)
+        return self.buckets[-1]
+
+    def _padded(self, ris):
+        """Repeat-pad a partial batch; weight 0 marks the repeats."""
+        n_real = len(ris)
+        weight = np.ones(self.batch_size, np.float32)
+        out = list(ris)
+        while len(out) < self.batch_size:
+            weight[len(out)] = 0.0
+            out.append(out[len(out) % n_real])
+        return out, weight
+
+    def _flush_pending(self):
+        """Epoch boundary: drain every bucket through the full square."""
+        leftovers = []
+        for b in self.buckets:
+            leftovers.extend(self.pending[b])
+            self.pending[b] = []
+        full = self.buckets[-1]
+        while leftovers:
+            ris, leftovers = (leftovers[:self.batch_size],
+                              leftovers[self.batch_size:])
+            ris, weight = self._padded(ris)
+            self._flush_queue.append((full, ris, weight))
+
+    def _schedule_next(self):
+        """Next (bucket, split positions, weights), from metadata only."""
+        while True:
+            if self._flush_queue:
+                return self._flush_queue.pop(0)
+            n = self.loader.split_size(self.split)
+            if not n:
+                raise ValueError(f"split {self.split} is empty")
+            if self.iterate:
+                ri = self.pos
+                self.pos = (self.pos + 1) % n
+            else:
+                ri = int(self.rng.randint(n))
+            b = self._bucket_for(*self.loader.example_meta(self.split, ri))
+            self.pending[b].append(ri)
+            full_bucket = None
+            if len(self.pending[b]) == self.batch_size:
+                ris, self.pending[b] = self.pending[b], []
+                full_bucket = (b, ris, np.ones(self.batch_size, np.float32))
+            # the split wraps next: queue the tail flush after any batch
+            # that just filled
+            if self.iterate and ri == n - 1:
+                if full_bucket is not None:
+                    self._flush_queue.append(full_bucket)
+                    full_bucket = None
+                self._flush_pending()
+            if full_bucket is not None:
+                return full_bucket
+
+    def next_batch(self):
+        """(bucket, batch): the batch keys with images cropped to the
+        bucket, `weight` (0 for repeat padding) and `ix` (the real
+        examples' dataset indices). Under shard the batch is this
+        process's slice of the global batch."""
+        bucket, ris, weight = self._schedule_next()
+        bh, bw = bucket
+        sel = slice(0, self.batch_size)
+        if self.shard is not None:
+            pid, nproc = self.shard
+            lb = self.batch_size // nproc
+            sel = slice(pid * lb, (pid + 1) * lb)
+        local, wloc = ris[sel], weight[sel]
+        exs = [self.loader.get_example_at(self.split, ri) for ri in local]
+        batch = {k: np.stack([e[k][:bh, :bw] if k == "image" else e[k]
+                              for e in exs]) for k in BATCH_KEYS}
+        batch["weight"] = wloc
+        batch["ix"] = [e["ix"] for e, wv in zip(exs, wloc) if wv > 0]
+        return bucket, batch
+
+
+class PrefetchingLoader:
+    """A background thread that keeps `depth` batches ready, from
+    `loader.get_batch(batch_size, split)` or from any zero-argument
+    callable `source` (e.g. a `BucketedLoader`'s batches). A failure to
+    read is raised by `next` in the consumer's thread."""
+
+    def __init__(self, loader=None, batch_size=None, split=0, depth=2,
+                 source=None):
+        if source is None:
+            if loader is None or batch_size is None:
+                raise ValueError("give a loader and batch_size, or source")
+
+            def source():
+                return loader.get_batch(batch_size, split)
+
         self.q = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
 
         def worker():
             while not self._stop.is_set():
                 try:
-                    item = loader.get_batch(batch_size, split)
+                    item = source()
                 except Exception as e:  # handed to the consumer by next()
                     item = e
                 while not self._stop.is_set():

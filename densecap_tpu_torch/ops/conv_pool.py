@@ -9,7 +9,9 @@ the stage pair conv1_2+pool1 / conv2_2+pool2 of trunk1:
   * `conv_relu_pool`: a CPU tensor takes the plain version, a CUDA tensor
     the kernel.
 
-Inputs: `x` (B, C, H, W) in the compute dtype, channels_last memory;
+Inputs: `x` (B, C, H, W) in the compute dtype, channels_last memory (the
+kernel's wrapper copies any other layout into it, e.g. the NCHW map that
+PyTorch's own conv writes when cuDNN is off);
 `w` (C, C, 3, 3) OIHW and `b` (C,) in the compute dtype; `eh` / `ew` (B,)
 f32 true extents. Output (B, C, H // 2, W // 2) channels_last, zero past
 the floor-halved extents. Trunk1 is never trained, so there is no
@@ -63,9 +65,8 @@ def prepare_cuda(x, w, b, eh, ew):
     if x.dtype not in _DTYPES or w.dtype != x.dtype or b.dtype != x.dtype:
         raise ValueError("conv_relu_pool_cuda: x, w and b must share a dtype, "
                          "bf16 or f32")
-    x_nhwc = x.permute(0, 2, 3, 1)
-    if not x_nhwc.is_contiguous():
-        raise ValueError("conv_relu_pool_cuda: x must be channels_last")
+    x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
+        0, 2, 3, 1)
     # bf16: [dy][dx][co][ci], K-major for the wgmma; f32: [dy][dx][ci][co]
     wt = w.permute((2, 3, 0, 1) if x.dtype == torch.bfloat16
                    else (2, 3, 1, 0)).contiguous()

@@ -11,7 +11,19 @@ policy that `densecap_tpu/cli/train.py` runs:
   * weight decay is added to the gradients, g += wd * p, in the trainable
     zones;
   * Adam with the reference hyperparameters, and ONE learning-rate
-    schedule outside the zones, advanced every step.
+    schedule outside the zones, advanced every step;
+  * an optional batch["weight"] reweights the loss mean (the bucketed
+    loader's repeat-padded slots carry weight 0).
+
+A `Trainer` built while the default `torch.distributed` group is up
+(`parallel/distributed.initialize`) runs a data parallel step over it,
+one process per device. Each rank holds its own slice of the global
+batch; the loss denominator is all-reduced first, each rank backpropagates
+its share of the global weighted mean, and the trainable zones' gradients
+are summed by one all-reduce over one flattened buffer a step. This is not
+`DistributedDataParallel`: the set of parameters that take a gradient
+changes at the finetune flip, and DDP's reducer is built once over a
+fixed set.
 """
 
 from __future__ import annotations
@@ -19,7 +31,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
+from . import distributed
 from ..utils.image import normalize_uint8_images
 
 
@@ -40,9 +54,17 @@ def cosine_decay_schedule(init_value, decay_steps, alpha=0.0):
     return schedule
 
 
-def batched_loss(model, batch, generator=None, debug_sampler=None):
-    """Mean over the batch of the per-image losses. A uint8 batch['image']
-    is normalized on the device first (the raw-uint8 feed)."""
+def batched_loss(model, batch, generator=None, debug_sampler=None,
+                 denom=None):
+    """The per-image losses' mean over the batch. A uint8 batch['image']
+    is normalized on the device first (the raw-uint8 feed).
+
+    An optional batch['weight'] (B,) reweights the mean, as in the JAX
+    package: every key becomes sum(v * w) / max(sum(w), 1), so a slot of
+    weight 0 adds nothing to the losses or their gradient. `denom`, when
+    given, replaces that denominator (or B without weights): the
+    distributed step passes the global batch's, so each rank's losses are
+    its share of the global mean."""
     images = batch["image"]
     if images.dtype == torch.uint8:
         images = normalize_uint8_images(images, batch["height"],
@@ -51,7 +73,15 @@ def batched_loss(model, batch, generator=None, debug_sampler=None):
         images, batch["height"], batch["width"], batch["gt_boxes"],
         batch["gt_labels"], batch["gt_valid"], generator=generator,
         debug_sampler=debug_sampler)
-    return {k: v.mean() for k, v in losses.items()}
+    w = batch.get("weight")
+    if w is None:
+        # sum / B, the same arithmetic as the distributed step's
+        denom = images.shape[0] if denom is None else denom
+        return {k: v.sum() / denom for k, v in losses.items()}
+    w = w.float()
+    if denom is None:
+        denom = torch.clamp(w.sum(), min=1.0)
+    return {k: (v * w).sum() / denom for k, v in losses.items()}
 
 
 class Trainer:
@@ -59,13 +89,18 @@ class Trainer:
     train=True)`) and runs its steps.
 
     learning_rate: a float, or a function of the update count (e.g.
-    `cosine_decay_schedule`), shared by every zone.
+    `cosine_decay_schedule`), shared by every zone. Built while a process
+    group is up, the Trainer runs the data parallel step over it; the
+    parameters are broadcast from rank 0 here, so every rank starts from
+    the same ones.
     """
 
     def __init__(self, model, learning_rate=1e-5, beta1=0.9, beta2=0.999,
                  eps=1e-8):
         self.model = model
         self.learning_rate = learning_rate
+        self.hyper = {"betas": (beta1, beta2), "eps": eps}
+        self.distributed = distributed.is_initialized()
         zones = param_zones(model)
         params = dict(model.named_parameters())
         self.main = [p for n, p in params.items() if zones[n] == "main"]
@@ -77,9 +112,13 @@ class Trainer:
         # optimizer and the reference's lazily created cnn state give.
         self.opt = torch.optim.Adam(
             [{"params": self.main}, {"params": self.cnn}],
-            lr=self.lr_at(0), betas=(beta1, beta2), eps=eps)
+            lr=self.lr_at(0), **self.hyper)
         self.count = 0
         self.set_finetune(False)
+        if self.distributed:
+            with torch.no_grad():
+                for p in params.values():
+                    dist.broadcast(p, 0)
 
     def set_finetune(self, on):
         """Turn trunk2's gradient (and its Adam updates) on or off."""
@@ -90,22 +129,64 @@ class Trainer:
         lr = self.learning_rate
         return lr(count) if callable(lr) else lr
 
+    def state_dict(self):
+        """What a resumed run needs besides the parameters: the Adam
+        state, the schedule's count and the finetune flag."""
+        return {"optimizer": self.opt.state_dict(), "count": self.count,
+                "finetune_cnn": self.finetune_cnn}
+
+    def load_state_dict(self, state):
+        """Restore `state_dict()` into a Trainer built the same way (over
+        a model with the same parameters). Before the flip trunk2 has no
+        Adam state, and it still has none after the load. The betas and
+        eps stay this Trainer's own, as the JAX CLI builds its optimizer
+        from its flags at resume (the learning rate is set every step)."""
+        self.opt.load_state_dict(state["optimizer"])
+        for group in self.opt.param_groups:
+            group.update(self.hyper)
+        self.count = int(state["count"])
+        self.set_finetune(state["finetune_cnn"])
+
     def step(self, batch, generator=None, debug_sampler=None):
         """One update on a batch of device tensors (image, height, width,
-        gt_boxes, gt_labels, gt_valid).
-        Returns the batch-mean losses as detached scalars."""
+        gt_boxes, gt_labels, gt_valid, and optionally weight). Returns the
+        batch-mean losses as detached scalars; distributed, the global
+        batch's, the same on every rank."""
         self.opt.zero_grad(set_to_none=True)
-        losses = batched_loss(self.model, batch, generator, debug_sampler)
+        denom = None
+        if self.distributed:
+            w = batch.get("weight")
+            denom = (w.float().sum() if w is not None else torch.tensor(
+                float(batch["image"].shape[0]), device=batch["image"].device))
+            dist.all_reduce(denom)
+            denom = torch.clamp(denom, min=1.0)
+        losses = batched_loss(self.model, batch, generator, debug_sampler,
+                              denom=denom)
         losses["total_loss"].backward()
+        trainable = self.main + (self.cnn if self.finetune_cnn else [])
         wd = self.model.cfg.weight_decay
         with torch.no_grad():
-            for p in self.main + (self.cnn if self.finetune_cnn else []):
+            for p in trainable:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if self.distributed:
+                # one buffer, flattened in the zones' order (the same on
+                # every rank: the flip happens at the same step on all)
+                flat = torch.cat([p.grad.reshape(-1) for p in trainable])
+                dist.all_reduce(flat)
+                for p, g in zip(trainable, flat.split(
+                        [p.numel() for p in trainable])):
+                    p.grad.copy_(g.view_as(p.grad))
+            for p in trainable:
                 p.grad.add_(p, alpha=wd)
         lr = self.lr_at(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
         self.count += 1
-        return {k: v.detach() for k, v in losses.items()}
+        out = {k: v.detach() for k, v in losses.items()}
+        if self.distributed:
+            vals = torch.stack(list(out.values()))
+            dist.all_reduce(vals)
+            out = dict(zip(out, vals.unbind()))
+        return out

@@ -17,6 +17,11 @@
     names and layouts, and `save_params(path, tree, extra)`, which writes
     it as the `.npz` that the JAX `load_params` and `load_params` here
     read.
+  * `save_train_state(prefix, trainer, it, meta)` /
+    `load_train_state(prefix, cfg, device)`: a training run's pair,
+    `<prefix>.npz` (the parameters as above) and `<prefix>.optim.pt`
+    (`Trainer.state_dict()` and the iteration, `torch.save`), which the
+    train CLI's `--checkpoint_start_from` resumes from.
 
 A tree that `ops.quant.quantize_for_inference` (or the JAX package's, as
 numpy) has quantized builds an int8 inference model: each quantized layer
@@ -73,6 +78,29 @@ def save_params(path, params, extra=None):
         flat[f"__extra__/{k}"] = np.asarray(v)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **flat)
+
+
+def save_train_state(prefix, trainer, it, meta):
+    """Write a training run's pair: `<prefix>.npz` (the model, with
+    `meta` under `__extra__/meta`) and `<prefix>.optim.pt`
+    (`trainer.state_dict()` and `iter`)."""
+    save_params(prefix + ".npz", from_torch(trainer.model),
+                extra={"meta": meta})
+    torch.save(dict(trainer.state_dict(), iter=int(it)), prefix + ".optim.pt")
+
+
+def load_train_state(prefix, cfg, device):
+    """Read the pair of `save_train_state` -> (model, state): the training
+    model of `<prefix>.npz` built with `cfg` on `device`, and the
+    `.optim.pt` dict, whose "iter" is the saved iteration; the rest is for
+    `Trainer.load_state_dict`. The Adam state loads onto the CPU and
+    `Trainer.load_state_dict` moves it to the parameters' device, keeping
+    each count on the CPU, as a fresh Adam has it."""
+    params, _ = load_params(prefix + ".npz")
+    model = to_torch(params, cfg, device, train=True)
+    state = torch.load(prefix + ".optim.pt", map_location="cpu",
+                       weights_only=True)
+    return model, state
 
 
 def load_params(path):

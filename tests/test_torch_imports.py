@@ -1,6 +1,7 @@
-"""The port never imports JAX or the JAX package: the machine with the card
-has no JAX. Checked in a fresh interpreter, so this test process's own
-imports do not count."""
+"""The port never imports JAX, optax, orbax or the JAX package: the machine
+with the card has none of them. Checked in a fresh interpreter, so this
+test process's own imports do not count. Also the help epilog that names
+the JAX CLIs' flags the port leaves out."""
 
 import os
 import subprocess
@@ -27,6 +28,9 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.ops.quant",
            "densecap_tpu_torch.serve.daemon",
            "densecap_tpu_torch.native_lib",
+           "densecap_tpu_torch.utils.profiling",
+           "densecap_tpu_torch.parallel.distributed",
+           "densecap_tpu_torch.utils.checkpoint",
            "chip_smoke"]
 
 
@@ -36,10 +40,24 @@ def test_port_imports_no_jax(module):
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'densecap_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'densecap_tpu'))\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", proc.stdout
+
+
+def test_epilog_names_the_flags_left_out():
+    from densecap_tpu_torch.cli import _common, train
+
+    for flag in ("--data_parallel", "--roi_align", "--model_parallel",
+                 "--uint8_pipe"):
+        assert flag in _common.NOT_PORTED
+    help_text = train.build_argparser().format_help()
+    assert "--model_parallel" in help_text  # the epilog
+    for flag in ("--checkpoint_start_from", "--canvas_buckets", "--timing",
+                 "--profile_dir", "--coordinator_address", "--num_processes",
+                 "--process_id"):
+        assert flag in help_text

@@ -391,6 +391,29 @@ def test_conv_pool_kernel_matches_plain(dev, C, H, W, ext):
         assert float(k_err.abs().max()) <= 1.25 * float(p_err.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv_pool_kernel_takes_an_nchw_map(dev, dtype):
+    """PyTorch's own conv (cuDNN off) writes NCHW; the wrapper copies it
+    into channels_last and gives the channels_last input's answer."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 18, 30), dtype=np.float32)
+                         ).to(dev, dtype)
+    w = torch.from_numpy(rng.standard_normal((64, 64, 3, 3), dtype=np.float32)
+                         * (2 / (9 * 64)) ** 0.5).to(dev, dtype)
+    b = torch.zeros(64, device=dev, dtype=dtype)
+    eh = torch.tensor([18.0, 11.0], device=dev)
+    ew = torch.tensor([30.0, 25.0], device=dev)
+    assert x.is_contiguous()
+    with torch.no_grad():
+        build.reset_launches()
+        got = cp.conv_relu_pool(x, w, b, eh, ew)
+        assert build.launches == dict(NONE, conv_pool=1)
+        want = cp.conv_relu_pool(
+            x.contiguous(memory_format=torch.channels_last), w, b, eh, ew)
+    assert torch.equal(got, want)
+
+
 def test_conv_pool_kernel_has_no_gradient(dev):
     x = torch.zeros((1, 64, 4, 4), device=dev, requires_grad=True)
     w = torch.zeros((64, 64, 3, 3), device=dev)
