@@ -1,7 +1,9 @@
 """Card-side check of the PyTorch port: kernels, full-width engine, HTTP,
 full-width training (canvas buckets, the batch weight, resume, data
 parallel ranks, a profiler trace), evaluation, offline inference, int8
-serving, the directory daemon and the native host I/O.
+serving, the directory daemon, the native host I/O, data-parallel
+evaluation and serving over model replicas, and the reference's t7
+checkpoint path.
 
     python3 chip_smoke.py [--before DIR]
 
@@ -112,12 +114,28 @@ its result on its own line; any failure raises and exits non-zero:
      (--device cuda) on 8 JPEG frames and a full-width checkpoint .npz
      with --native_io 1 and 0: results.json with 8 entries, boxes
      inside each frame, string captions, the same detections both ways,
-     and each decode path's host seconds per image.
+     and each decode path's host seconds per image;
+ 16. [data parallel] (after phase 11) --data_parallel's paths with two
+     replicas on cuda:0, each its own thread and stream: eval_split over
+     24 eval frames and the engine on 32 concurrent 720x540 frames, at
+     batch 8 with one replica and with two, in turns: images/s of each;
+     eval over the replicas within 1e-6 of one replica at batch 4 (the
+     shards' size), and every shard the engine's replicas ran bit-equal
+     to the model alone on that shard (a request's answer depends on the
+     frames that share its batch, which form by arrival);
+ 17. [t7] a full-width DenseCap checkpoint in the reference's t7 layout,
+     written from seed 0 by this script's own writer (~0.58 GB, under
+     build/, removed after): cli/convert_t7 to the shared .npz,
+     load_checkpoint (the flagship config), then on the card trunk1, the
+     RPN, fc6 and an LSTM step of the converted model (f32) against the
+     raw torch-layout weights within 1e-4 of scale, and the batch-8
+     engine on the converted model (16 frames, captions from the
+     checkpoint's vocabulary); write, read, convert and load seconds.
 
-Phases 7 (and its thin-frame part), 9-11 and 13-15 each drive their path
+Phases 7 (and its thin-frame part), 9-11 and 13-17 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
-K2 must launch on each. So do [train] and [train buckets], where K2, K2b
-and K3 must launch.
+K2 must launch on each (in 16, with one replica and with two). So do
+[train] and [train buckets], where K2, K2b and K3 must launch.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -141,6 +159,7 @@ import io
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -172,6 +191,7 @@ from densecap_tpu_torch.parallel.train_step import Trainer
 from densecap_tpu_torch.serve import daemon
 from densecap_tpu_torch.serve.engine import InferenceEngine
 from densecap_tpu_torch.serve.server import make_handler
+from densecap_tpu_torch.utils import t7_reader
 from densecap_tpu_torch.utils.checkpoint import (from_torch, init_params,
                                                  load_train_state,
                                                  save_params,
@@ -1713,6 +1733,421 @@ def phase_extract(dev, model):
     return counts
 
 
+def same_answer(x, y):
+    """Two engines' answers to one frame agree: captions equal, boxes
+    within rtol 1e-4 / atol 1e-3 (the JAX mesh engine's test)."""
+    return (x["captions"] == y["captions"]
+            and np.allclose(x["boxes"], y["boxes"], rtol=1e-4, atol=1e-3))
+
+
+# The runs of [data parallel]: replicas on cuda:0 and the batch size. Two
+# replicas at batch 8 run shards of 4, and a forward at 4 images may take
+# other cuDNN / cuBLAS kernels than one at 8 (on an H100 the detmap over
+# 20 eval frames moved from 0.00380301 at batch 8 to 0.00380823 over the
+# shards), so eval over the replicas is held to one replica at batch 4,
+# the same forwards; batch 8 on one replica is the speed baseline.
+DP_RUNS = {"1x8": (1, 8), "2x8": (2, 8), "1x4": (1, 4)}
+DP_ORDER = ("1x8", "2x8", "2x8", "1x8")
+
+
+def phase_data_parallel(dev, model, params, vocab):
+    """--data_parallel's paths with two replicas on the one card (each its
+    own thread and stream): eval_split over 24 eval frames (every shard 4
+    frames) and the engine on 32 concurrent 720x540 frames, at batch 8
+    with one replica and with two, in turns. Eval over the replicas must
+    give one replica's map and detmap at batch 4. The engine's batches
+    form by arrival, and a request's answer depends on which frames share
+    its batch (bf16 rounding, at full width with random weights), so
+    every shard the replicas ran is recomputed by the model alone and
+    must be bit-equal; the per-request agreement is printed. Two replicas
+    on one card share its host and device; the rates are written down,
+    not claimed."""
+    loader = MemoryLoader(eval_examples(model.cfg, n=24), vocab)
+    n = loader.split_size(1)
+    aps, eval_rate, counts = {}, {}, {}
+    for tag in DP_ORDER + ("1x4",):
+        reps, bs = DP_RUNS[tag]
+        t0 = time.perf_counter()
+        res, c = read_launches(lambda: eval_split(
+            model, loader, split=1, batch_size=bs, verbose=False,
+            compute_losses=False, devices=[dev] * reps))
+        eval_rate.setdefault(tag, []).append(n / (time.perf_counter() - t0))
+        aps[tag] = res["ap_results"]
+        counts.setdefault(tag, c)
+        need_launches(c, ("nms", "roi_align"), f"eval data parallel ({tag})")
+    print(f"[data parallel] eval_split, {n} frames, images/s (host clock, "
+          f"evaluator included; replicas x batch, order "
+          f"{DP_ORDER + ('1x4',)}): "
+          f"{ {k: [round(v, 2) for v in r] for k, r in eval_rate.items()} }; "
+          f"map / detmap "
+          f"{ {k: (a['map'], a['detmap']) for k, a in aps.items()} }; "
+          f"launches {counts['1x8']} / {counts['2x8']}")
+    if not all(abs(aps["1x4"][k] - aps["2x8"][k]) <= 1e-6
+               for k in ("map", "detmap")):
+        raise AssertionError("eval over two replicas disagrees with one "
+                             "replica at the shards' batch")
+
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(0, 256, (540, 720, 3), dtype=np.uint8)
+              for _ in range(32)]
+    engines = {tag: InferenceEngine(params, model.cfg, vocab, device=dev,
+                                    batch_size=DP_RUNS[tag][1],
+                                    batch_window_ms=50.0,
+                                    devices=[dev] * DP_RUNS[tag][0])
+               for tag in ("1x8", "2x8")}
+    eng = engines["2x8"]
+    shards = []
+
+    def recorded(m, x, hs, ws):
+        """The engine's pack, keeping each shard's inputs and output."""
+        out = InferenceEngine._pack(m, x, hs, ws)
+        shards.append((x.cpu(), hs.cpu(), ws.cpu(), out.cpu()))
+        return out
+
+    try:
+        assert eng.replicas is not None
+        for e in engines.values():
+            e.warmup()
+            timed_batch(e, frames[:16])
+        rate, answers, engine_counts = {}, {}, {}
+        for tag in DP_ORDER:
+            (wall, results), c = read_launches(
+                lambda: timed_batch(engines[tag], frames))
+            rate.setdefault(tag, []).append(len(frames) / wall)
+            answers.setdefault(tag, []).append(results)
+            engine_counts.setdefault(tag, c)
+            need_launches(c, ("nms", "roi_align"),
+                          f"engine data parallel ({tag})")
+        eng._pack = recorded
+        _, results = timed_batch(eng, frames)
+        answers["2x8"].append(results)
+        with torch.inference_mode():
+            exact = [torch.equal(InferenceEngine._pack(
+                eng.model, x.to(dev), h.to(dev), w.to(dev)).cpu(), out)
+                for x, h, w, out in shards]
+    finally:
+        for e in engines.values():
+            e.close()
+    for r in answers["2x8"][-1]:
+        check_result(r, eng.max_boxes)
+    agree = {k: sum(map(same_answer, a, b)) for k, (a, b) in {
+        "1x8 run 2 vs run 1": answers["1x8"],
+        "2x8 vs 1x8": (answers["1x8"][0], answers["2x8"][0])}.items()}
+    print(f"[data parallel] engine, 32 concurrent 720x540 frames, images/s "
+          f"(replicas x batch, order {DP_ORDER}): "
+          f"{ {k: [round(v, 2) for v in r] for k, r in rate.items()} }; "
+          f"shards the replicas ran, bit-equal to the model alone on the "
+          f"same shard: {sum(exact)} of {len(exact)}; requests answered "
+          f"alike (captions equal, boxes rtol 1e-4 atol 1e-3): {agree} of "
+          f"{len(frames)}; launches {engine_counts['1x8']} / "
+          f"{engine_counts['2x8']}")
+    if not (exact and all(exact)
+            and sum(len(x) for x, *_ in shards) >= len(frames)):
+        raise AssertionError("a replica's shard differs from the model's "
+                             "own answer on it")
+    return counts["2x8"], engine_counts["2x8"], {
+        "eval_images_per_s": eval_rate, "engine_images_per_s": rate,
+        "engine_requests_alike": agree,
+        "engine_shards_exact": [sum(exact), len(exact)],
+        "eval_map_detmap": {k: (a["map"], a["detmap"])
+                            for k, a in aps.items()}}
+
+
+class T7Writer:
+    """Torch7's binary serialization, the subset a DenseCap checkpoint
+    uses (numbers, booleans, strings, tables from dicts and lists, float32
+    tensors, torch objects), streamed to a file: the inverse of
+    `utils.t7_reader`."""
+
+    def __init__(self, f):
+        self.f = f
+        self.memo = 0
+
+    def _i32(self, v):
+        self.f.write(struct.pack("<i", v))
+
+    def _i64(self, v):
+        self.f.write(struct.pack("<q", v))
+
+    def _str(self, s):
+        raw = s.encode()
+        self._i32(len(raw))
+        self.f.write(raw)
+
+    def _torch(self, cls):
+        self._i32(t7_reader.TYPE_TORCH)
+        self.memo += 1
+        self._i32(self.memo)
+        self._str("V 1")
+        self._str(cls)
+
+    def write(self, obj):
+        if isinstance(obj, bool):
+            self._i32(t7_reader.TYPE_BOOLEAN)
+            self._i32(int(obj))
+        elif isinstance(obj, (int, float)):
+            self._i32(t7_reader.TYPE_NUMBER)
+            self.f.write(struct.pack("<d", float(obj)))
+        elif isinstance(obj, str):
+            self._i32(t7_reader.TYPE_STRING)
+            self._str(obj)
+        elif isinstance(obj, (dict, list)):
+            items = (obj.items() if isinstance(obj, dict)
+                     else enumerate(obj, start=1))
+            self._i32(t7_reader.TYPE_TABLE)
+            self.memo += 1
+            self._i32(self.memo)
+            self._i32(len(obj))
+            for k, v in items:
+                self.write(k)
+                self.write(v)
+        elif isinstance(obj, np.ndarray):
+            arr = np.ascontiguousarray(obj, np.float32)
+            self._torch("torch.FloatTensor")
+            self._i32(arr.ndim)
+            for v in arr.shape:
+                self._i64(v)
+            for v in arr.strides:
+                self._i64(v // 4)
+            self._i64(1)  # 1-based storage offset
+            self._torch("torch.FloatStorage")
+            self._i64(arr.size)
+            self.f.write(arr.data)
+        elif isinstance(obj, t7_reader.TorchObject):
+            self._torch(obj.torch_class)
+            self.write(obj.fields)
+        else:
+            raise TypeError(f"T7Writer: cannot write {type(obj)}")
+
+
+VGG16_CONVS = (("conv1_1", 3, 64), ("conv1_2", 64, 64), ("conv2_1", 64, 128),
+               ("conv2_2", 128, 128), ("conv3_1", 128, 256),
+               ("conv3_2", 256, 256), ("conv3_3", 256, 256),
+               ("conv4_1", 256, 512), ("conv4_2", 512, 512),
+               ("conv4_3", 512, 512), ("conv5_1", 512, 512),
+               ("conv5_2", 512, 512), ("conv5_3", 512, 512))
+
+
+def reference_t7(cfg, seed=0):
+    """A full-width DenseCap checkpoint in the reference's module layout
+    (DenseCapModel, LocalizationLayer's RPN, LanguageModel with a
+    torch-rnn LSTM), weights from `seed`: (checkpoint object, {name:
+    torch-layout array})."""
+    rng = np.random.default_rng(seed)
+    raw = {}
+
+    def obj(cls, **fields):
+        return t7_reader.TorchObject(cls, fields)
+
+    def seq(*mods):
+        return obj("nn.Sequential", modules=list(mods))
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def conv(name, cin, cout, k, std):
+        raw[name + ".weight"] = normal((cout, cin, k, k), std)
+        raw[name + ".bias"] = normal(cout, 0.01)
+        return obj("cudnn.SpatialConvolution", weight=raw[name + ".weight"],
+                   bias=raw[name + ".bias"], kW=k, kH=k, nInputPlane=cin,
+                   nOutputPlane=cout)
+
+    def linear(name, cin, cout, std):
+        raw[name + ".weight"] = normal((cout, cin), std)
+        raw[name + ".bias"] = normal(cout, 0.01)
+        return obj("nn.Linear", weight=raw[name + ".weight"],
+                   bias=raw[name + ".bias"])
+
+    def vgg(names):
+        mods = []
+        for name, cin, cout in VGG16_CONVS:
+            if name in names:
+                mods += [conv(name, cin, cout, 3, (2 / (9 * cin)) ** 0.5),
+                         obj("cudnn.ReLU")]
+                if name in ("conv1_2", "conv2_2", "conv3_3", "conv4_3"):
+                    mods.append(obj("cudnn.SpatialMaxPooling", kW=2, kH=2))
+        return seq(*mods)
+
+    k, nf, F, V = (cfg.num_anchors, cfg.rpn_num_filters, cfg.fc_dim,
+                   cfg.vocab_size)
+    W, H = cfg.rnn_encoding_size, cfg.rnn_size
+    names = [n for n, _, _ in VGG16_CONVS]
+    rpn = seq(conv("rpn_conv", 512, nf, 3, 0.01), obj("cudnn.ReLU"),
+              obj("nn.ConcatTable", modules=[
+                  seq(conv("rpn_box", nf, 4 * k, 1, 0.01),
+                      obj("nn.RegularizeLayer"), obj("nn.ReshapeBoxFeatures")),
+                  seq(conv("rpn_score", nf, 2 * k, 1, 0.01),
+                      obj("nn.ReshapeBoxFeatures"))]),
+              obj("nn.FlattenTable"))
+    raw["lm_lookup.weight"] = normal((V + 2, W), 0.1)
+    raw["lm_lstm.weight"] = normal((W + H, 4 * H), (1 / H) ** 0.5)
+    raw["lm_lstm.bias"] = normal(4 * H, 0.1)
+    lm = obj("nn.LanguageModel",
+             image_encoder=seq(linear("lm_image_encoder", F, W,
+                                      (1 / F) ** 0.5),
+                               obj("nn.ReLU"), obj("nn.View")),
+             lookup_table=obj("nn.LookupTable",
+                              weight=raw["lm_lookup.weight"]),
+             rnn=seq(obj("nn.LSTM", weight=raw["lm_lstm.weight"],
+                         bias=raw["lm_lstm.bias"]),
+                     obj("nn.View"), linear("lm_proj", H, V + 1,
+                                            (1 / H) ** 0.5),
+                     obj("nn.View")),
+             idx_to_token={i: f"w{i}" for i in range(1, V + 1)})
+    model = obj("DenseCapModel", nets={
+        "conv_net1": vgg(names[:4]), "conv_net2": vgg(names[4:]),
+        "recog_base": seq(obj("nn.View"),
+                          linear("fc6", 7 * 7 * 512, F, (2 / 25088) ** 0.5),
+                          obj("cudnn.ReLU"), obj("nn.Dropout"),
+                          linear("fc7", F, F, (2 / F) ** 0.5),
+                          obj("cudnn.ReLU"), obj("nn.Dropout")),
+        "localization_layer": obj("nn.LocalizationLayer", nets={"rpn": rpn}),
+        "objectness_branch": linear("objectness", F, 1, 0.01),
+        "box_reg_branch": linear("box_reg", F, 4, 0.001),
+        "language_model": lm})
+    return {"model": model, "iter": 0}, raw
+
+
+def max_rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def t7_checks(dev, params, cfg, raw):
+    """The converted weights on the card, in f32, against the reference's
+    computations over the raw torch-layout weights: trunk1 (conv1_1 ..
+    pool2) against F.conv2d chains, the RPN against its convs and the
+    ReshapeBoxFeatures order, fc6 against the NCHW-flattened product, and
+    one LSTM step against torch-rnn's fused (i, f, o, g) cell. -> max
+    error of each, relative to the reference's largest entry."""
+    import torch.nn.functional as F
+
+    m = to_torch(params, cfg.replace(compute_dtype=torch.float32), dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    errs = {}
+    with torch.inference_mode():
+        x = torch.randn((2, 3, 64, 64), generator=g, device=dev) * 50
+        full = torch.full((2,), 64.0, device=dev)
+        got = m.trunk1(x.contiguous(memory_format=torch.channels_last),
+                       full, full)
+        ref = x
+        for name in ("conv1_1", "conv1_2", "M", "conv2_1", "conv2_2", "M"):
+            ref = (F.max_pool2d(ref, 2, 2) if name == "M" else torch.relu(
+                F.conv2d(ref, r[name + ".weight"], r[name + ".bias"],
+                         padding=1)))
+        errs["trunk1"] = max_rel(got, ref)
+
+        feats = torch.randn((1, 512, 20, 24), generator=g, device=dev)
+        out = m.rpn(feats, cfg.anchor_tensor(dev), cfg.field_centers)
+        hid = torch.relu(F.conv2d(feats, r["rpn_conv.weight"],
+                                  r["rpn_conv.bias"], padding=1))
+        k = cfg.num_anchors
+        for name, got in (("rpn_box", out.trans), ("rpn_score", out.scores)):
+            y = F.conv2d(hid, r[name + ".weight"], r[name + ".bias"])[0]
+            D = y.shape[0] // k  # (D * k, H, W) -> (k * H * W, D), k-major
+            ref = y.reshape(k, D, 20, 24).permute(0, 2, 3, 1).reshape(-1, D)
+            errs[name] = max_rel(got[0], ref)
+
+        roi = torch.randn((16, 7, 7, 512), generator=g, device=dev)
+        got = m.recog.fc6(roi.reshape(16, -1), torch.float32)
+        ref = (roi.permute(0, 3, 1, 2).reshape(16, -1) @ r["fc6.weight"].T
+               + r["fc6.bias"])
+        errs["fc6"] = max_rel(got, ref)
+
+        W = cfg.rnn_encoding_size
+        xt, h, c = (torch.randn((16, n), generator=g, device=dev)
+                    for n in (W, cfg.rnn_size, cfg.rnn_size))
+        h2, c2 = m.lm.lstm_step(h, c, xt)
+        gates = (xt @ r["lm_lstm.weight"][:W] + h @ r["lm_lstm.weight"][W:]
+                 + r["lm_lstm.bias"])
+        i, f, o, gg = gates.chunk(4, dim=-1)
+        c_ref = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h_ref = torch.sigmoid(o) * torch.tanh(c_ref)
+        errs["lstm_step"] = max(max_rel(h2, h_ref), max_rel(c2, c_ref))
+    del m
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_t7(dev):
+    """The reference's checkpoint path at full width: a DenseCap t7 written
+    from seed 0 (VGG-16, fc 4096, RPN 256 filters, LSTM 512, vocab
+    10 000, ~0.58 GB), `cli/convert_t7.main` to the shared .npz,
+    `load_checkpoint`, the converted weights held to the raw ones on the
+    card, and the engine at the flagship geometry on the converted
+    model, K1 and K2 counted."""
+    from densecap_tpu_torch.cli import convert_t7
+    from densecap_tpu_torch.utils.checkpoint import load_checkpoint
+
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    secs = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        t7 = Path(tmp) / "densecap.t7"
+        t0 = time.perf_counter()
+        obj, raw = reference_t7(FLAGSHIP, seed=0)
+        with open(t7, "wb") as f:
+            T7Writer(f).write(obj)
+        del obj
+        secs["write"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = t7_reader.load(str(t7))
+        secs["read"] = time.perf_counter() - t0
+        n_floats = sum(v.size for v in t7_reader.extract_full_densecap_weights(
+            loaded).values())
+        del loaded
+        t0 = time.perf_counter()
+        convert_t7.main(["--t7", str(t7), "--output",
+                         str(Path(tmp) / "p.npz")])
+        secs["convert"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, meta, cfg = load_checkpoint(str(Path(tmp) / "p.npz"))
+        secs["load"] = time.perf_counter() - t0
+        gb = t7.stat().st_size / 1e9
+    print(f"[t7] wrote a full-width reference-layout t7 ({n_floats} floats, "
+          f"{gb:.3f} GB) in {secs['write']:.2f} s, read it in "
+          f"{secs['read']:.2f} s, convert_t7 (read, extract, convert, save "
+          f".npz) {secs['convert']:.2f} s, load_checkpoint "
+          f"{secs['load']:.2f} s (host clock)")
+    if cfg != FLAGSHIP:
+        raise AssertionError(f"the converted config is not the flagship's: "
+                             f"{cfg}")
+    errs = t7_checks(dev, params, cfg, raw)
+    print(f"[t7] converted weights on the card against the raw torch-layout "
+          f"ones (f32, max error relative to the reference's largest "
+          f"entry, tol 1e-4): {errs}")
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"a converted layer disagrees with the raw "
+                             f"weights: {errs}")
+    del raw
+    vocab = meta["idx_to_token"]
+    rng = np.random.default_rng(15)
+    frames = [rng.integers(0, 256, (540, 720, 3), dtype=np.uint8)
+              for _ in range(16)]
+    engine = InferenceEngine(params, cfg, vocab, device=dev, batch_size=8,
+                             batch_window_ms=50.0)
+    try:
+        engine.warmup()
+        (wall, results), counts = read_launches(
+            lambda: timed_batch(engine, frames))
+    finally:
+        engine.close()
+    words = set(vocab.values())
+    for r in results:
+        check_result(r, engine.max_boxes)
+    ok = (all(len(r["boxes"]) for r in results)
+          and all(set(c.split()) <= words for r in results
+                  for c in r["captions"]))
+    print(f"[t7] engine on the converted model, batch 8, 16 concurrent "
+          f"720x540 frames: {len(frames) / wall:.2f} images/s; boxes per "
+          f"frame {[len(r['boxes']) for r in results[:8]]}; captions from "
+          f"the checkpoint's vocabulary={ok}; launches {counts}")
+    need_launches(counts, ("nms", "roi_align"), "t7 engine")
+    if not ok:
+        raise AssertionError("the converted model's answers are malformed")
+    return counts, secs
+
+
 def phase_run_model(dev, params, vocab, native):
     """The run_model CLI on 8 JPEG frames and a full-width checkpoint, with
     the native JPEG pipeline (--native_io 1, the default; PIL when
@@ -2120,6 +2555,8 @@ def main(argv=None):
     paths = {"serve": serve, "eval": phase_eval(dev, model, vocab),
              "beam": phase_beam(dev, model),
              "extract_features": phase_extract(dev, model)}
+    (paths["eval data parallel"], paths["engine data parallel"],
+     data_parallel) = phase_data_parallel(dev, model, params, vocab)
     del model
     torch.cuda.empty_cache()
     int8 = phase_int8(dev, params)
@@ -2129,11 +2566,15 @@ def main(argv=None):
     paths["daemon"] = phase_daemon(dev, params, vocab)
     (paths["run_model --native_io 1"], paths["run_model --native_io 0"],
      decode_s) = phase_run_model(dev, params, vocab, native)
+    del params
+    paths["t7 engine"], t7_secs = phase_t7(dev)
     print(f"[train buckets] summary {json.dumps(buckets)}")
     print(f"[profile] summary {json.dumps(profile)}")
     print(f"[int8] summary {json.dumps(int8)}")
     print("[native] summary " + json.dumps(
         {"libraries": native, "decode_s_per_image": decode_s}))
+    print(f"[data parallel] summary {json.dumps(data_parallel)}")
+    print(f"[t7] summary {json.dumps({'host_s': t7_secs})}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
     kernels = [

@@ -6,11 +6,10 @@ import torch
 
 # What the JAX package's CLIs offer and these do not (yet).
 NOT_PORTED = (
-    "Flags of the JAX CLIs left out of this one: --data_parallel "
-    "(multi-device evaluation and serving; still to come), --roi_align / "
+    "Flags of the JAX CLIs left out of this one: --roi_align / "
     "--pallas_roi_align (TPU formulations of RoI align), --model_parallel "
-    "(tensor parallelism, densecap_tpu/parallel/mesh.py) and --uint8_pipe "
-    "0 (the port always feeds uint8 canvases).")
+    "(tensor parallelism, densecap_tpu/parallel/mesh.py; still to come) "
+    "and --uint8_pipe 0 (the port always feeds uint8 canvases).")
 
 
 def resolve_device(name):
@@ -20,6 +19,20 @@ def resolve_device(name):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available")
     return device
+
+
+def resolve_data_parallel(n, device):
+    """A --data_parallel flag -> the replicas' devices
+    (`parallel.mesh.data_devices`), or None for 1. More GPUs than are
+    visible is an error, never fewer replicas."""
+    if n <= 1:
+        return None
+    from ..parallel.mesh import data_devices
+
+    try:
+        return data_devices(n, device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def maybe_quantize(params, mode: str):

@@ -5,7 +5,9 @@ reference's evaluate_model.lua).
         --data_h5 d.h5 --data_json d.json --split test --device cuda
 
 Runs `eval.eval_split` over a split of the preprocessed h5 and prints one
-JSON line: {"map", "detmap", "loss", "score_method"}.
+JSON line: {"map", "detmap", "loss", "score_method"}. `--data_parallel N`
+shards each batch of the test pass over N GPUs (cuda:0 .. cuda:N-1 for
+`--device cuda`), one replica of the model on each.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from ..eval.eval_split import eval_split
 from ..utils.checkpoint import load_checkpoint, to_torch
 from ..utils.image import parse_buckets
 from ._common import (NOT_PORTED, add_quantize_flag, maybe_quantize,
-                      resolve_device)
+                      resolve_data_parallel, resolve_device)
 
 
 def build_argparser():
@@ -37,6 +39,9 @@ def build_argparser():
     p.add_argument("--max_gt_boxes", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=1,
                    help="images per test pass (> 1 skips the loss pass)")
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="shard the batched test pass over this many devices "
+                        "(requires --batch_size multiple of it)")
     p.add_argument("--skip_losses", type=int, default=0)
     p.add_argument("--beam_size", type=int, default=0,
                    help="beam width of the caption decode (0 = greedy)")
@@ -54,6 +59,11 @@ def build_argparser():
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
+    if args.data_parallel > 1 and args.batch_size % args.data_parallel:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} must be a multiple of "
+            f"--data_parallel {args.data_parallel}")
+    devices = resolve_data_parallel(args.data_parallel, device)
     loader = DenseCapLoader(args.data_h5, args.data_json,
                             max_gt_boxes=args.max_gt_boxes)
     try:
@@ -74,7 +84,7 @@ def main(argv=None):
             split={"val": 1, "test": 2}[args.split],
             max_images=args.max_images, beam_size=args.beam_size,
             compute_losses=not args.skip_losses, batch_size=args.batch_size,
-            canvas_buckets=buckets)
+            canvas_buckets=buckets, devices=devices)
     finally:
         loader.close()
     print(json.dumps({

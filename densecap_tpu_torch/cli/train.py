@@ -10,7 +10,7 @@ finetune flag and iteration from `<prefix>.optim.pt`; the loss history
 starts empty and the loader at the start of the split, as in the JAX CLI).
 A JAX run's orbax TrainState becomes such a pair with
 `scripts/torch_import_jax_state.py`. Data: the preprocessed h5
-(`densecap_tpu/data/preprocess.py`); the raw uint8 canvases are
+(`python -m densecap_tpu_torch.data.preprocess`); the raw uint8 canvases are
 normalized on the device, and `--canvas_buckets` crops each batch to the
 smallest listed canvas that holds its images (`data.loader
 .BucketedLoader`). Trunk1 never trains; trunk2 trains from

@@ -26,7 +26,7 @@ BATCH_KEYS = ("image", "height", "width", "gt_boxes", "gt_labels", "gt_valid")
 
 class DenseCapLoader:
     """Reads the preprocessed HDF5 and its dicts json (the schema of
-    `densecap_tpu/data/preprocess.py`).
+    `data/preprocess.py`, and of the JAX package's twin).
 
     shard: optional (process_id, num_processes); the loader then sees
     only every num_processes-th example of each split (round-robin), the

@@ -76,12 +76,17 @@ def prepare_cuda(x, w, b, eh, ew):
 
 
 def launch_cuda(x_nhwc, wt, bias, ext, out):
-    """One launch of K3 on prepared tensors (`prepare_cuda`); not counted."""
+    """One launch of K3 on prepared tensors (`prepare_cuda`); not counted.
+    It launches on the tensors' device (a ctypes call launches on the
+    calling thread's current device)."""
     B, H, W, C = x_nhwc.shape
-    rc = build.load().dc_conv_relu_pool(
-        x_nhwc.data_ptr(), wt.data_ptr(), bias.data_ptr(), ext.data_ptr(),
-        B, H, W, C, _DTYPES[x_nhwc.dtype], out.data_ptr(),
-        torch.cuda.current_stream(x_nhwc.device).cuda_stream)
+    lib = build.load()
+    with torch.cuda.device(x_nhwc.device):
+        rc = lib.dc_conv_relu_pool(
+            x_nhwc.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+            ext.data_ptr(), B, H, W, C, _DTYPES[x_nhwc.dtype],
+            out.data_ptr(),
+            torch.cuda.current_stream(x_nhwc.device).cuda_stream)
     build.check(rc, "conv_pool")
 
 

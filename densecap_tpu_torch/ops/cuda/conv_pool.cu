@@ -75,11 +75,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
 
 constexpr int kChunk = 64;                  // channels per K chunk, N block
+constexpr int kMaxDevices = 64;             // per-device launch set-up
 constexpr int kRowBytes = kChunk * 2;       // one 128 B swizzle row
 constexpr int kTapBytes = kChunk * kRowBytes;  // 64 x 64 weights of a tap
 constexpr int kTileCols = 32;               // conv columns per tile
@@ -565,18 +567,22 @@ int launch_bf16(const void* x, const void* wt, const void* bias,
   using S = Bf16Smem<C>;
   CUtensorMap xmap;
   if (!halo_map(&xmap, x, B, H, W, C)) return -2;
-  static int sms = 0;  // the attribute is per kernel, set once
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return -1;
+  // the attribute is per kernel and device: set once on each device, by
+  // whichever thread launches there first (a repeat is harmless)
+  static std::atomic<int> sms_of[kMaxDevices];
+  int sms = sms_of[dev].load(std::memory_order_acquire);
   if (sms == 0) {
-    int dev = 0, n = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(conv_pool_bf16_kernel<C>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                S::kBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    sms = n;
+    sms_of[dev].store(sms, std::memory_order_release);
   }
   // one CTA per SM, two tiles at a time; at C = 128 the CTAs pair up,
   // one per N block
@@ -596,13 +602,17 @@ int launch_f32(const void* x, const void* wt, const void* bias,
                const void* ext, int B, int H, int W, void* out,
                cudaStream_t s) {
   constexpr int kSmem = 4 * kF32HaloCols * C * 4;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return -1;
+  static std::atomic<bool> ready[kMaxDevices];  // per device, as above
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(
         conv_pool_f32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
+    ready[dev].store(true, std::memory_order_release);
   }
   const int Wo = W / 2;
   dim3 grid((Wo + kF32PoolCols - 1) / kF32PoolCols, H / 2, B);
@@ -619,8 +629,9 @@ int launch_f32(const void* x, const void* wt, const void* bias,
 // wt: (3, 3, C, C) in the same dtype, [dy][dx][co][ci] for bf16 (K-major
 // for the wgmma) and [dy][dx][ci][co] for f32; bias: (C,) same dtype;
 // ext: (B, 2) f32 per-image (eh, ew). out: (B, H/2, W/2, C).
-// C must be 64 or 128, H and W >= 2. Returns a cudaError_t, -1 for an
-// unsupported geometry, or -2 if the input's TMA map cannot be encoded.
+// C must be 64 or 128, H and W >= 2. Launches on the current device.
+// Returns a cudaError_t, -1 for an unsupported geometry or a device index
+// of kMaxDevices or more, or -2 if the input's TMA map cannot be encoded.
 extern "C" int dc_conv_relu_pool(const void* x, const void* wt,
                                  const void* bias, const void* ext, int B,
                                  int H, int W, int C, int dtype, void* out,

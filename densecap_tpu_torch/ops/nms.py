@@ -141,12 +141,16 @@ def prepare_cuda(boxes, scores, max_out, valid=None, presorted=False):
 
 
 def launch_cuda(sboxes, svalid, iou_thresh, keep, count):
-    """One launch of K1 on prepared tensors (`prepare_cuda`); not counted."""
+    """One launch of K1 on prepared tensors (`prepare_cuda`); not counted.
+    It launches on the tensors' device (a ctypes call launches on the
+    calling thread's current device)."""
     B, N = svalid.shape
-    rc = build.load().dc_nms(
-        sboxes.data_ptr(), svalid.data_ptr(), B, N, keep.shape[1],
-        float(iou_thresh), keep.data_ptr(), count.data_ptr(),
-        torch.cuda.current_stream(sboxes.device).cuda_stream)
+    lib = build.load()
+    with torch.cuda.device(sboxes.device):
+        rc = lib.dc_nms(
+            sboxes.data_ptr(), svalid.data_ptr(), B, N, keep.shape[1],
+            float(iou_thresh), keep.data_ptr(), count.data_ptr(),
+            torch.cuda.current_stream(sboxes.device).cuda_stream)
     build.check(rc, "nms")
 
 

@@ -129,13 +129,17 @@ def _stream(t):
 
 def launch_fwd(feats, yf, xf, img_idx, fh, fw, out):
     """One launch of K2 on prepared tensors (`prepare_cuda`) into `out`
-    (R, out_h, out_w, C); not counted."""
+    (R, out_h, out_w, C); not counted. Like `launch_bwd` it launches on
+    the tensors' device (a ctypes call launches on the calling thread's
+    current device)."""
     _, Hf, Wf, C = feats.shape
     R, out_h = yf.shape
-    rc = build.load().dc_roi_align_fwd(
-        feats.data_ptr(), yf.data_ptr(), xf.data_ptr(), img_idx.data_ptr(),
-        fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C, out_h, xf.shape[1],
-        out.data_ptr(), _stream(feats))
+    lib = build.load()
+    with torch.cuda.device(feats.device):
+        rc = lib.dc_roi_align_fwd(
+            feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
+            img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C,
+            out_h, xf.shape[1], out.data_ptr(), _stream(feats))
     build.check(rc, "roi_align")
 
 
@@ -148,11 +152,13 @@ def launch_bwd(g, feats, yf, xf, img_idx, fh, fw, d_yf, d_xf_rows,
     counted."""
     _, Hf, Wf, C = feats.shape
     R, out_h = yf.shape
-    rc = build.load().dc_roi_align_bwd(
-        g.data_ptr(), feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
-        img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C,
-        out_h, xf.shape[1], d_yf.data_ptr(), d_xf_rows.data_ptr(),
-        None if d_feats is None else d_feats.data_ptr(), _stream(feats))
+    lib = build.load()
+    with torch.cuda.device(feats.device):
+        rc = lib.dc_roi_align_bwd(
+            g.data_ptr(), feats.data_ptr(), yf.data_ptr(), xf.data_ptr(),
+            img_idx.data_ptr(), fh.data_ptr(), fw.data_ptr(), R, Hf, Wf, C,
+            out_h, xf.shape[1], d_yf.data_ptr(), d_xf_rows.data_ptr(),
+            None if d_feats is None else d_feats.data_ptr(), _stream(feats))
     build.check(rc, "roi_align_bwd")
 
 

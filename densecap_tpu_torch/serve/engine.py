@@ -6,7 +6,11 @@ canvases; the mean subtraction and padding mask run on the device. With
 pipeline: the dispatcher assembles a batch, runs the model on its
 thread's current stream and records a CUDA event; the completer waits
 on that event and makes one device-to-host copy for the whole batch.
-Box identities are tracked per client stream by a numpy TemporalSmoother.
+With `devices` (more than one) the dispatcher instead splits each batch
+over replicas of the model (`parallel.mesh.Replicas`, a thread and a
+stream each); the completer waits for every replica's event and makes
+one device-to-host copy per replica's shard. Box identities are tracked
+per client stream by a numpy TemporalSmoother.
 """
 
 from __future__ import annotations
@@ -14,10 +18,12 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from concurrent.futures import Future
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Replicas
 from ..utils.checkpoint import to_torch
 from ..utils.image import preprocess_for_model_uint8, to_model_input
 from ..utils.text import decode_sequence
@@ -81,15 +87,25 @@ class InferenceEngine:
     `params` is a numpy parameter tree (`utils.checkpoint.load_params` or
     `init_params`). `batch_size == 1` runs each request on the caller's
     thread; `batch_size > 1` micro-batches concurrent requests, padding a
-    short batch with repeats of its last frame. Call `close()` to stop
-    the pipeline threads.
+    short batch with repeats of its last frame. `devices` (a list, e.g.
+    `parallel.mesh.data_devices`; used in micro-batch mode only, as the
+    JAX engine uses its mesh) shards each batch contiguously over one
+    replica per device; `batch_size` must be a multiple of its length.
+    Call `close()` to stop the pipeline threads.
     """
 
     def __init__(self, params, cfg, idx_to_token, *, device, max_boxes=50,
                  smoothing=True, batch_size=1, batch_window_ms=5.0,
-                 request_timeout_s=60.0, max_streams=64):
+                 request_timeout_s=60.0, max_streams=64, devices=None):
+        if (devices is not None and batch_size > 1
+                and batch_size % len(devices)):
+            raise ValueError(f"batch_size {batch_size} must be a multiple of "
+                             f"the {len(devices)} data-parallel devices")
         self.device = torch.device(device)
         self.model = to_torch(params, cfg, self.device)
+        self.replicas = (Replicas(self.model, devices)
+                         if devices is not None and len(devices) > 1
+                         and batch_size > 1 else None)
         self.cfg = cfg
         self.idx_to_token = idx_to_token
         self.max_boxes = max_boxes
@@ -112,12 +128,15 @@ class InferenceEngine:
                 self._threads.append(t)
 
     def close(self):
-        """Stop the pipeline threads (batch_size > 1); idempotent."""
+        """Stop the pipeline threads (batch_size > 1) and the replicas';
+        idempotent."""
         if self._threads:
             self._q.put(None)
             for t in self._threads:
                 t.join(timeout=60)
             self._threads = []
+        if self.replicas is not None:
+            self.replicas.close()
 
     def warmup(self):
         """Run one blank frame through the whole path (builds the CUDA
@@ -134,8 +153,12 @@ class InferenceEngine:
     def _run(self, canvases, hs, ws):
         """Model on one batch -> one packed (B, K, 4 + 1 + T + 1) f32
         device tensor: boxes, score, tokens, valid."""
-        out = self.model.forward_test_batch(
-            *to_model_input(canvases, hs, ws, self.device))
+        return self._pack(self.model, *to_model_input(canvases, hs, ws,
+                                                      self.device))
+
+    @staticmethod
+    def _pack(model, x, hs, ws):
+        out = model.forward_test_batch(x, hs, ws)
         # tokens <= V + 1 are exact in f32
         return torch.cat([out.boxes, out.scores[..., None],
                           out.captions.float(),
@@ -149,8 +172,9 @@ class InferenceEngine:
 
     # ---- micro-batching ---------------------------------------------------
     def _dispatch_loop(self):
-        """Stage 1: assemble a micro-batch, run it, record its event.
-        A failed batch delivers its exception to every waiting request."""
+        """Stage 1: assemble a micro-batch, run it and record its event, or
+        queue its shards on the replicas. A failed batch delivers its
+        exception to every waiting request."""
         B = self.batch_size
         while True:
             first = self._q.get()
@@ -177,33 +201,43 @@ class InferenceEngine:
             hs = [r["h"] for r in reqs] + [reqs[-1]["h"]] * pad
             ws = [r["w"] for r in reqs] + [reqs[-1]["w"]] * pad
             try:
-                packed = self._run(canvases, hs, ws)
-                event = None
-                if packed.is_cuda:
-                    event = torch.cuda.Event()
-                    event.record(torch.cuda.current_stream(packed.device))
+                if self.replicas is not None:
+                    shards = self.replicas.submit(canvases, hs, ws,
+                                                  fn=self._pack)
+                else:
+                    packed = self._run(canvases, hs, ws)
+                    event = None
+                    if packed.is_cuda:
+                        event = torch.cuda.Event()
+                        event.record(torch.cuda.current_stream(packed.device))
+                    shards = [Future()]
+                    shards[0].set_result((packed, event))
             except Exception as e:  # noqa: BLE001 — deliver, don't die
                 for r in reqs:
                     r["error"] = e
                     r["event"].set()
             else:
-                self._inflight.put((reqs, packed, event))
+                self._inflight.put((reqs, shards))
             if stop:
                 self._inflight.put(None)
                 return
 
     def _complete_loop(self):
-        """Stage 2: wait for the oldest batch, copy it to the host once,
-        and wake its requests."""
+        """Stage 2: wait for the oldest batch (every shard's event), copy
+        each shard to the host once, and wake its requests."""
         while True:
             item = self._inflight.get()
             if item is None:
                 return
-            reqs, packed, event = item
+            reqs, shards = item
             try:
-                if event is not None:
-                    event.synchronize()
-                host = packed.cpu().numpy()
+                parts = []
+                for shard in shards:
+                    packed, event = shard.result()
+                    if event is not None:
+                        event.synchronize()
+                    parts.append(packed.cpu().numpy())
+                host = np.concatenate(parts)
             except Exception as e:  # noqa: BLE001 — deliver, don't die
                 for r in reqs:
                     r["error"] = e

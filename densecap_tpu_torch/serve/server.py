@@ -8,8 +8,10 @@ GET  /            the browser webcam client (densecap_tpu/serve/static)
 
 A JPEG body is decoded in memory by the native pipeline
 (`native_lib.decode_jpeg_bytes`) when it builds; PNG, and anything it
-does not decode, goes to PIL. --quantize int8 serves fc6/fc7 in int8. A
-failed warm-up is an error: the server does not start.
+does not decode, goes to PIL. --quantize int8 serves fc6/fc7 in int8.
+--data_parallel N (with --batch_size a multiple of N) splits each
+micro-batch over N GPUs from --device, one replica of the model on
+each. A failed warm-up is an error: the server does not start.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .. import native_lib
-from ..cli._common import add_quantize_flag, maybe_quantize
+from ..cli._common import (add_quantize_flag, maybe_quantize,
+                           resolve_data_parallel)
 from ..utils.checkpoint import load_checkpoint
 from .engine import InferenceEngine
 
@@ -125,6 +128,9 @@ def main(argv=None):
     p.add_argument("--max_boxes", type=int, default=50)
     p.add_argument("--batch_size", type=int, default=1,
                    help="micro-batch concurrent requests (throughput mode)")
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="shard each micro-batch over this many devices "
+                        "(requires --batch_size multiple of it)")
     p.add_argument("--certfile", default="",
                    help="enable TLS (browser webcams need HTTPS off localhost)")
     p.add_argument("--keyfile", default="")
@@ -136,9 +142,10 @@ def main(argv=None):
     cfg = cfg.replace(image_size=args.image_size,
                       test_max_proposals=args.num_proposals,
                       test_pre_nms_topk=args.pre_nms_topk)
+    devices = resolve_data_parallel(args.data_parallel, args.device)
     engine = InferenceEngine(params, cfg, meta.get("idx_to_token", {}),
                              device=args.device, max_boxes=args.max_boxes,
-                             batch_size=args.batch_size)
+                             batch_size=args.batch_size, devices=devices)
     print("warming up...")
     engine.warmup()
 

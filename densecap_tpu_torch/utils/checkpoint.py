@@ -17,6 +17,10 @@
     names and layouts, and `save_params(path, tree, extra)`, which writes
     it as the `.npz` that the JAX `load_params` and `load_params` here
     read.
+  * `convert_torch_densecap(weights)`, `convert_torch_vgg16(weights)`
+    and `rename_torchvision_vgg16(state_dict)`: torch-layout weights (the
+    reference's t7 read by `utils.t7_reader`, or a torchvision VGG-16)
+    -> the numpy tree, twins of the JAX package's converters.
   * `save_train_state(prefix, trainer, it, meta)` /
     `load_train_state(prefix, cfg, device)`: a training run's pair,
     `<prefix>.npz` (the parameters as above) and `<prefix>.optim.pt`
@@ -278,3 +282,149 @@ def from_torch(model):
                "lstm": {"Wx": n(lm.Wx), "Wh": n(lm.Wh), "b": n(lm.b)},
                "proj": {"w": n(lm.proj.w), "b": n(lm.proj.b)}},
     }
+
+
+# ---------------------------------------------------------------------------
+# Torch-layout weights (the reference's t7, loadcaffe or torchvision VGG-16)
+# -> the numpy tree above. numpy only: the same arrays the JAX package's
+# converters emit (HWIO convs, (in, out) linears), so the .npz serves both.
+# ---------------------------------------------------------------------------
+
+# our conv names in torch's 1-based Sequential order (loadcaffe VGG-16)
+_VGG_CONV_ORDER = [
+    "conv1_1", "conv1_2", "conv2_1", "conv2_2",
+    "conv3_1", "conv3_2", "conv3_3",
+    "conv4_1", "conv4_2", "conv4_3",
+    "conv5_1", "conv5_2", "conv5_3",
+]
+
+# torchvision vgg16 state_dict layer indices -> our names, so
+# {k: v.numpy() for k, v in tv_state_dict.items()} renames straight
+# into convert_torch_vgg16's expected keys
+_TORCHVISION_VGG16 = {
+    "features.0": "conv1_1", "features.2": "conv1_2",
+    "features.5": "conv2_1", "features.7": "conv2_2",
+    "features.10": "conv3_1", "features.12": "conv3_2",
+    "features.14": "conv3_3",
+    "features.17": "conv4_1", "features.19": "conv4_2",
+    "features.21": "conv4_3",
+    "features.24": "conv5_1", "features.26": "conv5_2",
+    "features.28": "conv5_3",
+    "classifier.0": "fc6", "classifier.3": "fc7",
+}
+
+
+def rename_torchvision_vgg16(state_dict):
+    """torchvision vgg16 {features.N.weight: array} -> our naming.
+
+    torchvision's VGG takes RGB images normalized to 0..1 and then by
+    ImageNet's mean and std; the reference caffemodel, and this model,
+    take BGR 0..255 pixels less the VGG mean. The renaming changes no
+    value: a caller starting from torchvision's weights must reverse
+    conv1_1's input channels and fold the normalization into it.
+    """
+    out = {}
+    for key, arr in state_dict.items():
+        base, _, kind = key.rpartition(".")
+        if base in _TORCHVISION_VGG16 and kind in ("weight", "bias"):
+            out[f"{_TORCHVISION_VGG16[base]}.{kind}"] = arr
+    return out
+
+
+def _conv_hwio(weights, name):
+    w = weights[f"{name}.weight"]                       # (Cout, Cin, kh, kw)
+    return {"w": np.transpose(w, (2, 3, 1, 0)).astype(np.float32).copy(),
+            "b": weights[f"{name}.bias"].astype(np.float32)}
+
+
+def _linear_t(weights, name):
+    w = weights[f"{name}.weight"]                       # (out, in) torch
+    return {"w": w.astype(np.float32).T.copy(),
+            "b": weights[f"{name}.bias"].astype(np.float32)}
+
+
+def convert_torch_vgg16(weights, out_hw=(7, 7)):
+    """{name: np.ndarray} torch-layout VGG-16 -> our trunk/recog trees.
+
+    Expected keys: '<conv_name>.weight' (Cout, Cin, kh, kw) and '.bias';
+    'fc6.weight' (4096, 25088), 'fc6.bias', 'fc7.weight' (4096, 4096),
+    'fc7.bias'. Returns (trunk1, trunk2, recog) param dicts.
+
+    fc6's input flatten order is torch channel-major (C, H, W); our RoI
+    features flatten NHWC (H, W, C) — the weight's input dim is permuted
+    accordingly.
+    """
+    trunk1 = {n: _conv_hwio(weights, n) for n in _VGG_CONV_ORDER[:4]}
+    trunk2 = {n: _conv_hwio(weights, n) for n in _VGG_CONV_ORDER[4:]}
+
+    H, W = out_hw
+    C = weights["fc6.weight"].shape[1] // (H * W)
+    w6 = weights["fc6.weight"].astype(np.float32)       # (4096, C*H*W)
+    # torch input index = c*H*W + y*W + x; ours = y*W*C + x*C + c
+    w6 = w6.reshape(-1, C, H, W).transpose(0, 2, 3, 1).reshape(w6.shape[0], -1)
+    recog = {
+        "fc6": {"w": w6.T.copy(), "b": weights["fc6.bias"].astype(np.float32)},
+        "fc7": _linear_t(weights, "fc7"),
+    }
+    return trunk1, trunk2, recog
+
+
+def convert_torch_densecap(weights, out_hw=(7, 7)):
+    """Full torch-layout DenseCap weights -> complete params tree.
+
+    Input is the flat dict from t7_reader.extract_full_densecap_weights
+    (VGG names + rpn_conv/rpn_box/rpn_score, objectness, box_reg,
+    lm_image_encoder, lm_lookup, lm_lstm, lm_proj). Returns
+    (params, info) where params has the tree of `init_params` and
+    info carries dimensions derived from the tensors themselves
+    (vocab_size, num_anchors, rnn sizes) for config validation.
+
+    Layout mapping per tensor:
+      * convs: torch (Cout, Cin, kh, kw) -> HWIO (identical channel
+        semantics: both frameworks group the box/score head channels as
+        (anchor, dim) — ReshapeBoxFeatures.lua:30 `view(N, k, D, H, W)`
+        vs ops/transforms.reshape_box_features).
+      * Linears: torch (out, in) -> ours (in, out) transpose.
+      * LookupTable: (V+2, W) copied as-is (row token-1 indexing both).
+      * torch-rnn nn.LSTM: one fused (D+H, 4H) weight, gate order
+        (i, f, o, g); rows 0..D-1 are Wx, rows D.. are Wh — our cell
+        keeps the same gate order (`models/lstm.py` `lstm_step`), so the
+        split is a plain row slice.
+    """
+    trunk1, trunk2, recog = convert_torch_vgg16(weights, out_hw=out_hw)
+
+    rpn = {"conv": _conv_hwio(weights, "rpn_conv"),
+           "box": _conv_hwio(weights, "rpn_box"),
+           "score": _conv_hwio(weights, "rpn_score")}
+
+    enc_w = weights["lm_image_encoder.weight"]          # (W, D)
+    W_enc = enc_w.shape[0]
+    lstm_w = weights["lm_lstm.weight"].astype(np.float32)   # (D+H, 4H)
+    H_rnn = lstm_w.shape[1] // 4
+    lm = {
+        "img_enc": _linear_t(weights, "lm_image_encoder"),
+        "embed": weights["lm_lookup.weight"].astype(np.float32).copy(),
+        "lstm": {"Wx": lstm_w[:W_enc].copy(),
+                 "Wh": lstm_w[W_enc:].copy(),
+                 "b": weights["lm_lstm.bias"].astype(np.float32)},
+        "proj": _linear_t(weights, "lm_proj"),
+    }
+
+    params = {
+        "trunk1": trunk1,
+        "trunk2": trunk2,
+        "rpn": rpn,
+        "recog": recog,
+        "objectness": _linear_t(weights, "objectness"),
+        "box_reg": _linear_t(weights, "box_reg"),
+        "lm": lm,
+    }
+    info = {
+        "vocab_size": int(weights["lm_lookup.weight"].shape[0] - 2),
+        "num_anchors": int(weights["rpn_box.weight"].shape[0] // 4),
+        "rpn_num_filters": int(weights["rpn_conv.weight"].shape[0]),
+        "rnn_size": int(H_rnn),
+        "rnn_encoding_size": int(W_enc),
+        "fc_dim": int(weights["fc7.weight"].shape[0]),
+    }
+    return params, info

@@ -11,9 +11,14 @@ shapes: NMS picks identical, RoI align within 1e-5 on unit-scale
 features and its backward (K2b) within 1e-5 (d feats) and 1e-4 (d boxes)
 of the plain autograd gradient's scale, the fused conv+pool (K3) in f32 within 1e-4 and in
 bf16 no worse than the plain version against an f32 oracle, and each
-wrapper counting exactly its own launches; and the int8 product of
-`ops/quant.py` on the card identical to the CPU's.
+wrapper counting exactly its own launches; the int8 product of
+`ops/quant.py` on the card identical to the CPU's; each kernel launched
+on its tensors' device from a thread whose current device is another
+(skipped with fewer than two cards); and two model replicas on one card
+(`parallel.mesh.Replicas`) equal to the model alone.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -449,3 +454,109 @@ def test_int8_qdot_on_card_matches_cpu(dev, M, K, N):
     ref = quant.qdot(x, layers["cpu"])
     assert got.shape == (M, N)
     assert torch.allclose(got, ref, rtol=1e-6, atol=0)
+
+
+@pytest.fixture
+def second(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+def _on_fresh_thread(fn):
+    """fn() on a new thread whose current device is cuda:0."""
+    out = {}
+
+    def run():
+        torch.cuda.set_device(0)
+        out["result"] = fn()
+        torch.cuda.synchronize(1)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive()
+    return out["result"]
+
+
+def test_kernels_launch_on_their_tensors_device(dev, second):
+    """K1, K2 and K3 (bf16 and f32) called on cuda:1 tensors from a thread
+    whose current device is cuda:0, each after its first launch on
+    cuda:0: the same results as on cuda:0 (a ctypes call launches on the
+    current device, and K3's shared-memory attribute is set per device)."""
+    rng = np.random.default_rng(5)
+    boxes = xcycwh_to_x1y1x2y2(torch.from_numpy(_boxes(rng, 2, 3000)))
+    scores = torch.from_numpy(rng.uniform(0, 1, (2, 3000)).astype(np.float32))
+    feats = torch.from_numpy(rng.standard_normal((2, 45, 45, 512),
+                                                 dtype=np.float32))
+    img_h, img_w = torch.tensor([720.0, 540.0]), torch.tensor([540.0, 720.0])
+    fh, fw = feat_extent(img_h, img_w)
+    rois = torch.from_numpy(_boxes(rng, 2, 300))
+    x = torch.from_numpy(rng.standard_normal((2, 64, 40, 66),
+                                             dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 64, 3, 3),
+                                             dtype=np.float32) * 0.06)
+    b = torch.from_numpy(rng.standard_normal(64, dtype=np.float32) * 0.1)
+    eh, ew = torch.tensor([40.0, 31.0]), torch.tensor([66.0, 50.0])
+
+    def calls(d):
+        def run():
+            with torch.no_grad():
+                xd = x.to(d).contiguous(memory_format=torch.channels_last)
+                return {
+                    "nms": nms_mod.nms(boxes.to(d), scores.to(d), 0.7, 500),
+                    "roi": roi_mod.roi_align(feats.to(d), rois.to(d),
+                                             img_h.to(d), img_w.to(d),
+                                             fh.to(d), fw.to(d)),
+                    **{f"conv_{t}": cp.conv_relu_pool(
+                        xd.to(dt), w.to(d, dt), b.to(d, dt), eh.to(d),
+                        ew.to(d))
+                       for t, dt in (("bf16", torch.bfloat16),
+                                     ("f32", torch.float32))}}
+        return run
+
+    ref = calls(dev)()
+    build.reset_launches()
+    got = _on_fresh_thread(calls(second))
+    assert build.launches == dict(NONE, nms=1, roi_align=1, conv_pool=2)
+    for k in ref:
+        for r, g in zip(*(v if isinstance(v, tuple) else (v,)
+                          for v in (ref[k], got[k]))):
+            assert g.device == second
+            assert torch.equal(r.cpu(), g.cpu()), k
+
+
+def test_two_replicas_on_one_card_equal_one(dev):
+    """Two replicas on cuda:0 (each its own thread and stream) against
+    the model alone on the whole batch; both replicas' launches count."""
+    from densecap_tpu_torch.config import DenseCapConfig
+    from densecap_tpu_torch.parallel.mesh import Replicas
+    from densecap_tpu_torch.utils.checkpoint import init_params, to_torch
+    from densecap_tpu_torch.utils.image import to_model_input
+
+    cfg = DenseCapConfig(vocab_size=20, seq_length=4, image_size=96,
+                         anchors=((8, 8), (16, 16), (12, 24), (24, 12)),
+                         test_max_proposals=12, test_pre_nms_topk=64,
+                         rnn_size=32, rnn_encoding_size=32, fc_dim=64,
+                         rpn_num_filters=32, compute_dtype=torch.float32)
+    model = to_torch(init_params(cfg, seed=3), cfg, dev)
+    rng = np.random.default_rng(3)
+    canvases = rng.integers(0, 256, (4, 96, 96, 3), dtype=np.uint8)
+    hs, ws = [96.0, 72.0, 96.0, 50.0], [80.0, 96.0, 96.0, 96.0]
+    ref = model.forward_test_batch(*to_model_input(canvases, hs, ws, dev))
+    reps = Replicas(model, [dev, dev])
+    try:
+        assert reps.streams[0] != reps.streams[1]
+        build.reset_launches()
+        outs = reps.run(canvases, hs, ws)
+        torch.cuda.synchronize()
+        assert build.launches == dict(NONE, nms=4, roi_align=2)
+    finally:
+        reps.close()
+    assert [len(o.boxes) for o in outs] == [2, 2]
+    for k in ("valid", "captions"):
+        assert torch.equal(torch.cat([getattr(o, k) for o in outs]),
+                           getattr(ref, k))
+    for k in ("boxes", "scores"):
+        torch.testing.assert_close(torch.cat([getattr(o, k) for o in outs]),
+                                   getattr(ref, k), rtol=1e-4, atol=1e-3)
