@@ -1,6 +1,7 @@
 """Card-side check of the PyTorch port: kernels, full-width engine, HTTP,
 full-width training (canvas buckets, the batch weight, resume, data
-parallel ranks, a profiler trace), evaluation, offline inference, int8
+parallel ranks, tensor-parallel ranks, a profiler trace), evaluation,
+offline inference, int8
 serving, the directory daemon, the native host I/O, data-parallel
 evaluation and serving over model replicas, and the reference's t7
 checkpoint path.
@@ -78,7 +79,16 @@ its result on its own line; any failure raises and exits non-zero:
      4, a slot of weight 0, two steps with the flip between): bit-equal
      ranks that launched K3, K2 and both K2b instances, each
      step within [train reference]'s bounds of one process's on the whole
-     batch from the same state; [profile] torch.profiler over three
+     batch from the same state; [tensor parallel] two gloo ranks on
+     cuda:0 forming one model group (M = 2) at the flagship's full width
+     (V+1 = 10 001 split unevenly), in f32 and in bf16: 2 frozen steps,
+     the flip, 1 more; the ranks' replicated parameters bit-equal, K3,
+     K2 and both K2b instances launched on each, every step within
+     [train reference]'s bounds of one unsharded process's step from the
+     same state (where |g| is large, bf16 within TP_BF16_LARGE_G), and
+     the ranks' checkpoint resumed at world 1 within the floor of the
+     unsharded save of the same state; [profile]
+     torch.profiler over three
      flagship frozen steps on the square and three on the bucket (traces
      under build/profile): device time per step of each, the square's top
      8 CUDA kernels with the bucket's time for each, and StageTimer
@@ -135,7 +145,8 @@ its result on its own line; any failure raises and exits non-zero:
 Phases 7 (and its thin-frame part), 9-11 and 13-17 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
 K2 must launch on each (in 16, with one replica and with two). So do
-[train] and [train buckets], where K2, K2b and K3 must launch.
+[train], [train buckets] and [tensor parallel]'s ranks, where K2, K2b
+and K3 must launch.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -187,12 +198,14 @@ from densecap_tpu_torch.ops import roi_align as roi_mod
 from densecap_tpu_torch.ops.boxes import xcycwh_to_x1y1x2y2
 from densecap_tpu_torch.ops.cuda import build
 from densecap_tpu_torch.parallel import distributed
+from densecap_tpu_torch.parallel.mesh import gather_optimizer_state
 from densecap_tpu_torch.parallel.train_step import Trainer
 from densecap_tpu_torch.serve import daemon
 from densecap_tpu_torch.serve.engine import InferenceEngine
 from densecap_tpu_torch.serve.server import make_handler
 from densecap_tpu_torch.utils import t7_reader
 from densecap_tpu_torch.utils.checkpoint import (from_torch, init_params,
+                                                 load_params,
                                                  load_train_state,
                                                  save_params,
                                                  save_train_state, to_torch)
@@ -1029,19 +1042,27 @@ def step_diff(run, ref):
     return loss_err, worst_all, worst_big
 
 
-def within_reference(errs, lr):
+def large_g_bound(lr):
+    """[train reference]'s bound where |g| is large: 1e-3 lr + 1e-6."""
+    return 1e-3 * lr + 1e-6
+
+
+def within_reference(errs, lr, large=None):
     """The [train reference] bounds: losses rtol 1e-4; Adam's first update
     is about -lr * sign(g), so entries with |g| near eps may differ by up
-    to 2 lr, and where |g| is large they agree to 1e-3 lr + 1e-6."""
+    to 2 lr, and where |g| is large they agree to `large` (default
+    large_g_bound(lr))."""
     loss_err, worst_all, worst_big = errs
+    large = large_g_bound(lr) if large is None else large
     return (loss_err <= 1e-4 and worst_all <= 2 * lr + 1e-6
-            and worst_big <= 1e-3 * lr + 1e-6)
+            and worst_big <= large)
 
 
-def describe(errs, lr):
+def describe(errs, lr, large=None):
+    large = large_g_bound(lr) if large is None else large
     return (f"losses max rel err {errs[0]:.2e} (tol 1e-4); updated params max "
             f"diff {errs[1]:.2e} (bound 2 lr = {2 * lr:.0e}), where |g| is "
-            f"large {errs[2]:.2e} (bound {1e-3 * lr + 1e-6:.1e})")
+            f"large {errs[2]:.2e} (bound {large:.2e})")
 
 
 def phase_train_reference(dev, lr=1e-3):
@@ -1347,6 +1368,28 @@ def dist_worker(rank, init, out, lr=1e-3):
         distributed.shutdown()
 
 
+def run_ranks(flag, tmp, timeout, *extra):
+    """Two ranks of this script (`flag` r: --dist_rank or --tp_rank, then
+    `extra` arguments) in subprocesses that meet at a gloo store in
+    `tmp` -> what each saved (on the CPU). Raises with the output of a
+    rank that failed."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r),
+         "--dist_init", f"file://{tmp}/gloo", "--dist_out",
+         f"{tmp}/rank{r}", *extra], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"a gloo rank failed:\n{out[-4000:]}")
+    return [torch.load(f"{tmp}/rank{r}", map_location="cpu",
+                       weights_only=True) for r in (0, 1)]
+
+
 def phase_distributed(dev, floor, lr=1e-3):
     """A world-1 NCCL group (distributed.initialize) whose distributed
     step must equal the plain Trainer's within the [resume] floor; then
@@ -1392,21 +1435,7 @@ def phase_distributed(dev, floor, lr=1e-3):
             raise AssertionError("the world-1 distributed step differs")
 
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist_rank",
-             str(r), "--dist_init", f"file://{tmp}/gloo", "--dist_out",
-             f"{tmp}/rank{r}"], cwd=str(ROOT), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
-        try:
-            outs = [p.communicate(timeout=300)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-        for p, out in zip(procs, outs):
-            if p.returncode != 0:
-                raise AssertionError(f"a gloo rank failed:\n{out[-4000:]}")
-        saved = [torch.load(f"{tmp}/rank{r}", map_location="cpu",
-                            weights_only=True) for r in (0, 1)]
+        saved = run_ranks("--dist_rank", tmp, 300)
     ranks = [s["steps"] for s in saved]
     for s in saved:
         need_launches(s["launches"], ("conv_pool", "roi_align",
@@ -1431,6 +1460,274 @@ def phase_distributed(dev, floor, lr=1e-3):
           f"{describe(worst, lr)}")
     if not (equal and within_reference(worst, lr)):
         raise AssertionError("the gloo ranks disagree")
+
+
+TP_LR = 1e-5
+TP_FROZEN = 2  # [tensor parallel]: frozen steps, then the flip and one more
+TP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Where |g| is large, the largest parameter difference allowed between a
+# [tensor parallel] step and one unsharded process's. f32: the [train
+# reference] bound. bf16: a sum split over the group's columns rounds
+# otherwise before its bf16 cast, and the second Adam step turns that
+# into updates up to TP_BF16_LARGE_G apart; see PERF.md (PR 10) for the
+# sound run's reading and a broken control's, between which it lies.
+TP_BF16_LARGE_G = 3e-6
+TP_LARGE_G = {"float32": large_g_bound(TP_LR), "bfloat16": TP_BF16_LARGE_G}
+
+
+def tp_config(dtype):
+    return FLAGSHIP.replace(fuse_conv_pool=True,
+                            compute_dtype=TP_DTYPES[dtype])
+
+
+def tp_batches(cfg, dev):
+    """The [tensor parallel] steps' batches: B = 8 540x720 frames each
+    (seed 23), on dev."""
+    rng = np.random.default_rng(23)
+    return [to_dev(make_train_batch(rng, cfg, B, (540, 720), 30), dev)
+            for _ in range(TP_FROZEN + 1)]
+
+
+def replicated_equal(trainer):
+    """Whether this rank's replicated parameters equal rank 1's bit for
+    bit (a broadcast of one flattened buffer: both ranks call it)."""
+    mine = torch.cat([p.detach().reshape(-1)
+                      for n, p in trainer.model.named_parameters()
+                      if n not in trainer.shards])
+    theirs = mine.clone()
+    torch.distributed.broadcast(theirs, 1)
+    return bool(torch.equal(mine, theirs))
+
+
+def tp_worker(rank, init, out, dtype):
+    """One of two gloo ranks sharing cuda:0 in one model group, M = 2 (a
+    subprocess of phase_tensor_parallel): the flagship train step at full
+    width in `dtype` on the same batches, TP_FROZEN frozen steps, the
+    flip, one more. After each step: whether the replicated parameters
+    equal the peer's, and the pair (`save_train_state`, gathered; rank 0
+    writes) as <dir>/tp<i>, the last one's parameters only. After the
+    first, this rank's own shards and Adam state as they are, for an
+    unsharded save of the same state."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False  # as phase_device sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(init_method=init, num_processes=2, process_id=rank,
+                           device=dev, backend="gloo", model_parallel=2)
+    work = Path(out).parent
+    try:
+        cfg = tp_config(dtype)
+        batches = tp_batches(cfg, dev)
+        trainer = Trainer(to_torch(init_params(cfg, seed=0), cfg, dev,
+                                   train=True), learning_rate=TP_LR)
+        assert len(trainer.shards) == 6
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rec = {"ms": [], "losses": [], "gen": [], "equal": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        for i, batch in enumerate(batches):
+            if i == TP_FROZEN:
+                trainer.set_finetune(True)
+            rec["gen"].append(gen.get_state())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = trainer.step(batch, generator=gen)
+            end.record()
+            end.synchronize()
+            rec["ms"].append(start.elapsed_time(end))
+            rec["losses"].append({k: float(v) for k, v in losses.items()})
+            rec["launches"] = dict(build.launches)
+            rec["equal"].append(replicated_equal(trainer))
+            prefix = str(work / f"tp{i}")
+            if i < TP_FROZEN:
+                save_train_state(prefix, trainer, i + 1, "{}")
+            else:
+                tree = from_torch(trainer.model)
+                if rank == 0:
+                    save_params(prefix + ".npz", tree)
+                del tree
+            if i == 0:
+                opt = trainer.opt.state_dict()
+                torch.save({
+                    "params": {n: p.detach().cpu() for n, p in
+                               trainer.model.named_parameters()
+                               if rank == 0 or n in trainer.shards},
+                    "optimizer": dict(opt, state={
+                        j: {k: v.cpu() for k, v in st.items()}
+                        for j, st in opt["state"].items()}),
+                    "names": trainer.names}, f"{out}.shards")
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.save(rec, out)
+    finally:
+        distributed.shutdown()
+
+
+def resumed_trainer(prefix, cfg, dev):
+    model, state = load_train_state(prefix, cfg, dev)
+    trainer = Trainer(model, learning_rate=TP_LR)
+    trainer.load_state_dict(state)
+    return trainer
+
+
+def cpu_params(path, cfg):
+    """An .npz's parameters by the training model's names, on the CPU."""
+    model = to_torch(load_params(path)[0], cfg, "cpu", train=True)
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def worst_large_g(run, ref):
+    """The parameter where two `one_step` results differ most where |g|
+    of `ref` is large (step_diff's third number): (name, diff, that
+    entry's |g| over its parameter's largest)."""
+    worst = ("", 0.0, 0.0)
+    for n, (p_ref, g_ref) in ref[1].items():
+        g = g_ref.abs()
+        big = g > 1e-3 * g.max()
+        if not big.any():
+            continue
+        diff = torch.where(big, (run[1][n][0] - p_ref).abs(), 0.0).flatten()
+        k = int(diff.argmax())
+        if float(diff[k]) > worst[1]:
+            worst = (n, float(diff[k]), float(g.flatten()[k] / g.max()))
+    return worst
+
+
+def unsharded_save(tmp, cfg, dev, params):
+    """The pair of one unsharded Trainer holding the state the ranks
+    held after their first step, joined on the host from each rank's own
+    shards and Adam state (`mesh.gather_optimizer_state`), written by the
+    world-1 `save_train_state` -> its prefix."""
+    shards = [torch.load(f"{tmp}/rank{r}.shards", weights_only=True)
+              for r in (0, 1)]
+    trainer = Trainer(to_torch(params, cfg, dev, train=True),
+                      learning_rate=TP_LR)
+    with torch.no_grad():
+        for n, p in trainer.model.named_parameters():
+            parts = [s["params"][n] for s in shards if n in s["params"]]
+            p.copy_(torch.cat(parts, -1) if len(parts) > 1 else parts[0])
+    trainer.load_state_dict({
+        "optimizer": gather_optimizer_state(
+            [s["optimizer"] for s in shards], shards[0]["names"]),
+        "count": 1, "finetune_cnn": False})
+    prefix = f"{tmp}/unsharded"
+    save_train_state(prefix, trainer, 1, "{}")
+    return prefix
+
+
+def tp_run(dev, params, dtype):
+    """The two ranks at `dtype` (tp_worker), then each of their steps
+    from the same state in one unsharded process, and the second step
+    from their first pair and from the unsharded save of the same state.
+    -> (the ranks' records, each step's step_diff, the resumed steps'
+    difference, its floor)."""
+    cfg = tp_config(dtype)
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        t0 = time.perf_counter()
+        saved = run_ranks("--tp_rank", tmp, 900, "--tp_dtype", dtype)
+        wall = time.perf_counter() - t0
+        for s in saved:
+            need_launches(s["launches"], ("conv_pool", "roi_align",
+                                          "roi_align_bwd",
+                                          "roi_align_bwd_feats"),
+                          "tensor parallel")
+        for r, s in enumerate(saved):
+            print(f"[tensor parallel] {dtype} rank {r} (gloo, cuda:0, "
+                  f"M = 2; {wall:.1f} s with the processes' start): ms per "
+                  f"step {', '.join(f'{t:.1f}' for t in s['ms'])}; peak "
+                  f"device memory {s['peak_bytes'] / 2**30:.2f} GiB; "
+                  f"replicated parameters equal to rank 1's after each "
+                  f"step {s['equal']}; launches {s['launches']}")
+        batches = tp_batches(cfg, dev)
+        errs, after_first = [], None
+        for i, batch in enumerate(batches):
+            trainer = (resumed_trainer(f"{tmp}/tp{i - 1}", cfg, dev) if i
+                       else Trainer(to_torch(params, cfg, dev, train=True),
+                                    learning_rate=TP_LR))
+            if i == TP_FROZEN:
+                trainer.set_finetune(True)
+            gen = torch.Generator(device=dev)
+            gen.set_state(saved[0]["gen"][i])
+            ref = one_step(trainer, batch, dev, generator=gen)
+            del trainer
+            got = (saved[0]["losses"][i],
+                   {n: (p, None) for n, p in
+                    cpu_params(f"{tmp}/tp{i}.npz", cfg).items()})
+            errs.append(step_diff(got, ref))
+            name, diff, share = worst_large_g(got, ref)
+            print(f"[tensor parallel] {dtype} step {i + 1} "
+                  f"({'finetune' if i >= TP_FROZEN else 'frozen'}) against "
+                  f"one unsharded process from the same state: "
+                  f"{describe(errs[-1], TP_LR, TP_LARGE_G[dtype])} (at "
+                  f"{name}, |g| "
+                  f"{share:.1e} of its largest); total_loss "
+                  f"{saved[0]['losses'][i]['total_loss']:.6f} vs "
+                  f"{ref[0]['total_loss']:.6f}")
+            if i == 1:
+                after_first = {n: p for n, (p, _) in ref[1].items()}
+            del ref, got
+        # the second step from the ranks' first pair, again (the floor),
+        # and from the unsharded save of the same state
+        ends = []
+        for prefix in (f"{tmp}/tp0", unsharded_save(tmp, cfg, dev, params)):
+            trainer = resumed_trainer(prefix, cfg, dev)
+            gen = torch.Generator(device=dev)
+            gen.set_state(saved[0]["gen"][1])
+            ends.append({n: p for n, (p, _) in
+                         one_step(trainer, batches[1], dev,
+                                  generator=gen)[1].items()})
+            del trainer
+    floor = max_diff(ends[0], after_first)
+    err = max_diff(ends[1], after_first)
+    print(f"[tensor parallel] {dtype}: the ranks' pair after step 1 resumed "
+          f"at world 1, step 2 from it against from the unsharded save of "
+          f"the same state: max parameter diff {err:.3e} (floor, two loads "
+          f"of the ranks' pair: {floor:.3e})")
+    return saved, errs, err, floor, wall
+
+
+def phase_tensor_parallel(dev, params):
+    """Tensor parallelism (`--model_parallel`): two gloo ranks in
+    subprocesses sharing cuda:0 (NCCL refuses two ranks on one GPU) form
+    one model group, M = 2, data axis 1, at the flagship's full width
+    (V+1 = 10 001 columns split 5001 + 5000, B = 8 540x720 frames, K3 on,
+    dropout 0.5, lr 1e-5): TP_FROZEN frozen steps, the flip, one more
+    (tp_worker), first in f32 and then in bf16. Each step is held to one
+    unsharded process's step on the same batch from the same state (the
+    pair the ranks wrote before it, the same generator state). Checks, in
+    both dtypes: the ranks' replicated parameters bit-equal after every
+    step and their losses equal; each rank launched K3, K2 and both K2b
+    instances; every step within the [train reference] bounds, where |g|
+    is large within TP_LARGE_G of its dtype; the pair the ranks wrote
+    after their first step, loaded into a world-1 Trainer, takes the next
+    step within the floor of two such loads (0 on a frozen step:
+    bit-equal) of one resumed from the unsharded save of the same state.
+    gloo moves every collective through the host, so the ranks' ms/step
+    show correctness, not speed. Returns the bf16 run's rank 0 launches
+    and a summary."""
+    summary, ok = {}, True
+    for dtype in TP_DTYPES:
+        saved, errs, err, resume_floor, wall = tp_run(dev, params, dtype)
+        torch.cuda.empty_cache()
+        equal = (all(all(s["equal"]) for s in saved)
+                 and saved[0]["losses"] == saved[1]["losses"])
+        within = all(within_reference(e, TP_LR, TP_LARGE_G[dtype])
+                     for e in errs)
+        print(f"[tensor parallel] {dtype}: ranks bit-equal={equal}; every "
+              f"step within the [train reference] bounds of one process "
+              f"(where |g| is large {TP_LARGE_G[dtype]:.2e})={within}; "
+              f"resumed step {err:.3e} (floor {resume_floor:.3e})")
+        ok &= equal and within and err <= resume_floor
+        summary[dtype] = {"ms_per_step": [s["ms"] for s in saved],
+                          "peak_bytes": [s["peak_bytes"] for s in saved],
+                          "step_errs": errs, "resume_err": err,
+                          "resume_floor": resume_floor, "wall_s": wall}
+    if not ok:
+        raise AssertionError("[tensor parallel] the model group disagrees "
+                             "with one unsharded process")
+    return saved[0]["launches"], summary
 
 
 def device_kernels(prof):
@@ -2520,11 +2817,19 @@ def main(argv=None):
     # one rank of the [distributed] phase's gloo pair (its subprocesses)
     ap.add_argument("--dist_rank", type=int, default=None,
                     help=argparse.SUPPRESS)
+    # one rank of the [tensor parallel] phase's gloo pair
+    ap.add_argument("--tp_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp_dtype", choices=TP_DTYPES, help=argparse.SUPPRESS)
     ap.add_argument("--dist_init", help=argparse.SUPPRESS)
     ap.add_argument("--dist_out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dist_rank is not None:
         dist_worker(args.dist_rank, args.dist_init, args.dist_out)
+        return
+    if args.tp_rank is not None:
+        tp_worker(args.tp_rank, args.dist_init, args.dist_out,
+                  args.tp_dtype)
         return
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2545,6 +2850,8 @@ def main(argv=None):
     phase_weight(dev)
     floor = phase_resume(dev)
     phase_distributed(dev, floor)
+    tp_counts, tp = phase_tensor_parallel(dev, params)
+    torch.cuda.empty_cache()
     profile = phase_profile(dev, params)
     torch.cuda.empty_cache()
     vocab = {i: f"w{i}" for i in range(1, FLAGSHIP.vocab_size + 1)}
@@ -2570,6 +2877,7 @@ def main(argv=None):
     paths["t7 engine"], t7_secs = phase_t7(dev)
     print(f"[train buckets] summary {json.dumps(buckets)}")
     print(f"[profile] summary {json.dumps(profile)}")
+    print(f"[tensor parallel] summary {json.dumps(tp)}")
     print(f"[int8] summary {json.dumps(int8)}")
     print("[native] summary " + json.dumps(
         {"libraries": native, "decode_s_per_image": decode_s}))
@@ -2577,6 +2885,8 @@ def main(argv=None):
     print(f"[t7] summary {json.dumps({'host_s': t7_secs})}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
+    paths["tensor parallel"] = tp_counts
+    train_paths = ("train", "train buckets", "tensor parallel")
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",
@@ -2598,14 +2908,14 @@ def main(argv=None):
              "positions + d feats": train["roi_align_bwd_feats"]},
          "launches_by_path": {
              p: paths[p]["roi_align_bwd"] + paths[p]["roi_align_bwd_feats"]
-             for p in ("train", "train buckets")},
+             for p in train_paths},
          **k2b},
         {"name": "conv_pool", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/conv_pool.cu",
          "replaces": "densecap_tpu/ops/pallas/conv_pool_kernel.py:273",
          "launches": train["conv_pool"],
          "launches_by_path": {p: paths[p]["conv_pool"]
-                              for p in ("train", "train buckets")},
+                              for p in train_paths},
          **k3},
     ]
     print(f"[device] nvidia-smi: {smi}")

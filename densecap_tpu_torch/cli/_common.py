@@ -7,9 +7,8 @@ import torch
 # What the JAX package's CLIs offer and these do not (yet).
 NOT_PORTED = (
     "Flags of the JAX CLIs left out of this one: --roi_align / "
-    "--pallas_roi_align (TPU formulations of RoI align), --model_parallel "
-    "(tensor parallelism, densecap_tpu/parallel/mesh.py; still to come) "
-    "and --uint8_pipe 0 (the port always feeds uint8 canvases).")
+    "--pallas_roi_align (TPU formulations of RoI align) and --uint8_pipe 0 "
+    "(the port always feeds uint8 canvases).")
 
 
 def resolve_device(name):

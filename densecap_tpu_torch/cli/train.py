@@ -44,9 +44,22 @@ CLI runs one per host), each started with the same flags and its own
 
 `--batch_size` is the global batch; each rank loads its share from a
 round-robin shard of the split (or, with buckets, its slice of the shared
-schedule), samples with a generator seeded `--seed` + 1 + rank, and the
-gradients are all-reduced (`parallel.train_step.Trainer`). Rank 0 alone
-evaluates, prints and writes; the others wait for it.
+schedule), samples with a generator seeded `--seed` + 1 + rank (its data
+index, below), and the gradients are all-reduced
+(`parallel.train_step.Trainer`). Rank 0 alone evaluates, prints and
+writes; the others wait for it.
+
+`--model_parallel M` adds tensor parallelism: the N processes form
+N / M data slots of M consecutive ranks, and each slot shards fc6, fc7
+and the vocab projection over its ranks (`parallel/tensor_parallel.py`).
+The JAX CLI meshes the local devices of one process; here every rank is
+a process, so M must divide `--num_processes`, and M > 1 in a single
+process is an error. The data axis is N / M: `--batch_size` must be a
+multiple of it, and the loader shard and the sampler's seed (`--seed` +
+1 + data index) follow the data index, so the ranks of one slot load,
+sample and drop out alike. At each evaluation every rank gathers the full
+parameters and Adam state; rank 0 evaluates an unsharded model of them
+and writes them, so a checkpoint resumes at any M.
 """
 
 from __future__ import annotations
@@ -138,6 +151,10 @@ def build_argparser():
                    help="host:port of rank 0 (or a tcp:// or file:// URL)")
     p.add_argument("--num_processes", type=int, default=1)
     p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="ranks per model group: fc6, fc7 and the vocab "
+                        "projection are sharded over them; must divide "
+                        "--num_processes")
     return p
 
 
@@ -156,8 +173,12 @@ def _to_device(batch, device):
     return out
 
 
-def save_checkpoint(args, trainer, it, meta):
-    ckpt.save_train_state(args.checkpoint_path, trainer, it, meta)
+def save_checkpoint(args, trainer, it, meta, host=None):
+    """Write the pair; `host`: its (params, state) when already gathered
+    from every rank (`utils.checkpoint.gather_train_state`)."""
+    ckpt.write_train_state(args.checkpoint_path,
+                           *(host or ckpt.gather_train_state(trainer)), it,
+                           meta)
     print(f"saved checkpoint to {args.checkpoint_path}.npz")
 
 
@@ -170,26 +191,49 @@ def write_history(args, it, loss_history, results_history):
                    "results_history": results_history}, f)
 
 
+def data_axis(args):
+    """The data axis N / M of --num_processes N and --model_parallel M,
+    after the checks that the rules hold; SystemExit names the rule a
+    flag breaks."""
+    nproc, m = max(args.num_processes, 1), args.model_parallel
+    if m < 1:
+        raise SystemExit(f"--model_parallel must be >= 1, got {m}")
+    if m > 1 and nproc == 1:
+        raise SystemExit(
+            f"--model_parallel {m} needs --num_processes: each rank of a "
+            "model group is a process (one per GPU)")
+    if nproc % m:
+        raise SystemExit(f"--model_parallel {m} must divide --num_processes "
+                         f"{nproc}")
+    data = nproc // m
+    if args.batch_size % data:
+        if m == 1:
+            raise SystemExit(f"--batch_size {args.batch_size} must divide "
+                             f"evenly across {nproc} processes")
+        raise SystemExit(f"--batch_size {args.batch_size} must be a multiple "
+                         f"of the data axis {data} (--num_processes {nproc} "
+                         f"/ --model_parallel {m})")
+    return data
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     nproc = max(args.num_processes, 1)
-    if args.batch_size % nproc:
-        raise SystemExit(f"--batch_size {args.batch_size} must divide evenly "
-                         f"across {nproc} processes")
-    local_batch_size = args.batch_size // nproc
+    local_batch_size = args.batch_size // data_axis(args)
     rank = args.process_id if nproc > 1 else 0
     device = distributed.rank_device(resolve_device(args.device), rank)
     with contextlib.ExitStack() as stack:
         distributed.initialize(
             coordinator_address=args.coordinator_address or None,
             num_processes=nproc if nproc > 1 else None, process_id=rank,
-            device=device)
+            device=device, model_parallel=args.model_parallel)
         stack.callback(distributed.shutdown)
-        _train(args, device, rank, nproc, local_batch_size, stack)
+        _train(args, device, nproc, local_batch_size, stack)
 
 
-def _train(args, device, rank, nproc, local_batch_size, stack):
+def _train(args, device, nproc, local_batch_size, stack):
     is_main = distributed.is_main_process()
+    tp = distributed.model_size() > 1
 
     def open_loader(**kw):
         loader = DenseCapLoader(args.data_h5, args.data_json,
@@ -224,7 +268,8 @@ def _train(args, device, rank, nproc, local_batch_size, stack):
     )
     if is_main:
         print(f"vocab_size={cfg.vocab_size} seq_length={cfg.seq_length} "
-              f"device={device} processes={nproc}")
+              f"device={device} processes={nproc} "
+              f"model_parallel={distributed.model_size()}")
     lr = args.learning_rate
     if args.cosine_decay_steps > 0:
         lr = cosine_decay_schedule(args.learning_rate,
@@ -251,9 +296,12 @@ def _train(args, device, rank, nproc, local_batch_size, stack):
         # the static freeze is a training-time choice, not the model's
         "config": cfg.replace(static_freeze_cnn=False).to_json(),
     })
+    # keyed on the data index: the ranks of a model group must draw the
+    # same sample and dropout masks
+    data_rank, data_size = distributed.data_rank(), distributed.data_size()
     generator = torch.Generator(device=device).manual_seed(
-        args.seed + 1 + rank)
-    shard = (rank, nproc) if nproc > 1 else None
+        args.seed + 1 + data_rank)
+    shard = (data_rank, data_size) if data_size > 1 else None
     if args.canvas_buckets:
         buckets = [tuple(int(v) for v in b.split("x"))
                    for b in args.canvas_buckets.split(",") if b]
@@ -336,10 +384,16 @@ def _train(args, device, rank, nproc, local_batch_size, stack):
                 or (args.eval_first_iteration and it == 1)
                 or 0 < args.max_iters == it):
             drain(force=True)
+            # under tensor parallelism every rank takes part in gathering
+            # the full parameters and Adam state (JAX evaluates host params)
+            host = ckpt.gather_train_state(trainer) if tp else None
             if is_main:
-                results = eval_split(trainer.model, val_loader, split=1,
+                model = (ckpt.to_torch(host[0], cfg, device) if tp
+                         else trainer.model)
+                results = eval_split(model, val_loader, split=1,
                                      max_images=args.val_images_use,
                                      verbose=False)
+                del model
                 map_score = results["ap_results"]["map"]
                 results_history[it] = {
                     "loss_results": results["loss_results"],
@@ -348,7 +402,12 @@ def _train(args, device, rank, nproc, local_batch_size, stack):
                 write_history(args, it, loss_history, results_history)
                 if map_score > best_val_score:
                     best_val_score = map_score
-                    save_checkpoint(args, trainer, it, meta)
+                    # without TP, the call save_checkpoint has always
+                    # had (hooks that wrap it take these four arguments)
+                    if host is None:
+                        save_checkpoint(args, trainer, it, meta)
+                    else:
+                        save_checkpoint(args, trainer, it, meta, host=host)
             distributed.barrier(device)
     drain(force=True)
 

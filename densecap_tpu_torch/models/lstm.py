@@ -22,7 +22,10 @@ class LanguageModel(nn.Module):
     """Matrices (in, out), cast to the compute dtype at use; biases and
     the embedding f32. `proj`, the vocab projection, is a `Linear` or, for
     int8 inference, a `QuantLinear`, which quantizes the f32 hidden state
-    as it is (JAX `_project`)."""
+    as it is (JAX `_project`). Under tensor parallelism `proj` holds this
+    rank's columns of the V+1 classes and gathers the full-width scores
+    (`Linear`'s shard), so the cross-entropy, softmax and argmax see all
+    V+1 columns and never a padded one."""
 
     def __init__(self, enc_w, enc_b, embed, Wx, Wh, b, proj, compute_dtype):
         super().__init__()

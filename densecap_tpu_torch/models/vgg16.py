@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.conv_pool import conv_relu_pool, extent_mask
 from ..ops.quant import QuantLinear
+from ..parallel.tensor_parallel import copy_to_model, gather_from_model
 
 # (name, out_channels) per conv; 'M' = 2x2/2 max pool.
 TRUNK1_CFG = [("conv1_1", 64), ("conv1_2", 64), "M",
@@ -74,14 +75,37 @@ def dot_f32(x, w, cd):
 class Linear(nn.Module):
     """A full-precision layer: weight (in, out) and f32 bias, `x @ w + b`
     by `dot_f32`. Its quantized counterpart is `ops.quant.QuantLinear`;
-    both are called as `layer(x, compute_dtype)`."""
+    both are called as `layer(x, compute_dtype)`.
 
-    def __init__(self, w, b):
+    With a `shard` (`parallel.tensor_parallel.ColumnShard`) the layer is
+    column-parallel: `w` and `b` hold this rank's columns, the input is
+    copied into the model group and the output gathered to full width,
+    so callers see the unsharded layer. The input enters the group as
+    f32 (exact for a bf16 input): on the card `dot_f32` then returns each
+    rank's part of its gradient in f32, the group sums them in f32, and
+    the sum is rounded to the input's dtype once, as the unsharded
+    layer's one product is. (On the CPU a bf16 product rounds each part
+    first.)"""
+
+    def __init__(self, w, b, shard=None):
         super().__init__()
         self.w, self.b = frozen(w), frozen(b)
+        self.shard = shard
 
     def forward(self, x, compute_dtype):
-        return dot_f32(x, self.w, compute_dtype) + self.b
+        if self.shard is None:
+            return dot_f32(x, self.w, compute_dtype) + self.b
+        x = copy_to_model(x.float(), self.shard)
+        return gather_from_model(dot_f32(x, self.w, compute_dtype) + self.b,
+                                 self.shard)
+
+    def full(self):
+        """(w, b) at full width, detached: this rank's own without a
+        shard, else gathered over the model group (a collective)."""
+        w, b = self.w.detach(), self.b.detach()
+        if self.shard is None:
+            return w, b
+        return self.shard.gather(w), self.shard.gather(b)
 
 
 class Trunk(nn.Module):

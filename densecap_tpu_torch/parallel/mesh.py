@@ -1,22 +1,42 @@
-"""Data-parallel inference over model replicas in one process.
+"""Both axes of the JAX package's ('data', 'model') mesh
+(`densecap_tpu/parallel/mesh.py`).
 
-Counterpart of the `'data'` axis of `densecap_tpu/parallel/mesh.py`: the
-JAX package replicates the params over a ('data', 'model') mesh and lets
-XLA shard each batch; here one process holds a replica of the model per
-device and runs each contiguous shard of a batch on its own replica.
-Tensor parallelism (the `'model'` axis: fc6 / fc7 and the vocab
-projection sharded over devices, `--model_parallel`) is not ported yet.
+The `'data'` axis of inference: the JAX package replicates the params
+over the mesh and lets XLA shard each batch; here one process holds a
+replica of the model per device and runs each contiguous shard of a batch
+on its own replica.
 
   * `data_devices(n, device)`: the n devices of `--data_parallel n`.
   * `Replicas(model, devices)`: one replica of a `DenseCap` per device,
     each driven by its own host thread on its own CUDA stream.
-"""
 
+The `'model'` axis, tensor parallelism (`--model_parallel`): its layout
+over the numpy parameter tree of `utils.checkpoint.init_params` /
+`load_params`. The twin of `param_pspecs` is `param_shard_dims`: fc6,
+fc7 and the vocab projection shard their output columns (the last dim of
+a (in, out) weight and of its bias), everything else is replicated. The
+columns split unevenly where M does not divide them, as
+`torch.tensor_split` does (`split_columns`): V+1 = 10 001 at the
+flagship vocab, so nothing is padded, and no padded column can reach a
+softmax, a gradient or a checkpoint (the JAX package pads the vocab to a
+multiple of M and masks the padded logits instead).
+
+  * `shard_params(params, model_rank, M)` / `gather_params(shards)`: a
+    full tree to one rank's shard (what `utils.checkpoint.to_torch`
+    builds a training model of inside a model group) and M shards back
+    to the full tree;
+  * `shard_optimizer_state` / `gather_optimizer_state`: the same for
+    Adam's `exp_avg` and `exp_avg_sq` in a `torch.optim.Adam`
+    state dict, whose entries are indexed by parameter position.
+
+The model group's collectives live in `parallel/tensor_parallel.py`.
+"""
 from __future__ import annotations
 
 import copy
 from concurrent.futures import ThreadPoolExecutor, wait
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -148,3 +168,116 @@ class Replicas:
                 event.synchronize()
             outs.append(out)
         return outs
+
+
+# ---------------------------------------------------------------------------
+# The 'model' axis: which leaves shard, and how a tree splits and joins.
+# ---------------------------------------------------------------------------
+
+
+def is_sharded(name):
+    """Whether the leaf `name` ('/'-joined tree path or a dotted torch
+    parameter name) shards over the model group: the `w` and `b` of
+    recog's fc6 / fc7 and of lm's vocab projection (`param_pspecs`)."""
+    keys = name.replace(".", "/").split("/")
+    return keys[-1] in ("w", "b") and (
+        "recog" in keys or ("lm" in keys and "proj" in keys))
+
+
+def split_columns(width, m):
+    """[(start, stop)] of each of the m ranks' columns of a dim of
+    `width`: `torch.tensor_split`'s sizes, the first width % m one
+    wider."""
+    base, extra = divmod(int(width), int(m))
+    bounds, start = [], 0
+    for r in range(m):
+        stop = start + base + (r < extra)
+        bounds.append((start, stop))
+        start = stop
+    return bounds
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _map_tree(fn, tree, prefix=""):
+    return {k: (_map_tree(fn, v, f"{prefix}{k}/") if isinstance(v, dict)
+                else fn(prefix + k, v)) for k, v in tree.items()}
+
+
+def param_shard_dims(params):
+    """{'/'-joined leaf name: the dim sharded over the model group, or
+    None}: the twin of `param_pspecs` on the same tree."""
+    return {name: np.ndim(leaf) - 1 if is_sharded(name) else None
+            for name, leaf in _leaves(params)}
+
+
+def local_columns(x, model_rank, m):
+    """Rank `model_rank`'s columns (last dim) of a full array or tensor."""
+    start, stop = split_columns(x.shape[-1], m)[model_rank]
+    return x[..., start:stop]
+
+
+def _join(parts):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, -1)
+    return np.concatenate(parts, -1)
+
+
+def shard_params(params, model_rank, m):
+    """A full numpy tree -> rank `model_rank`'s of M shards: the leaves
+    that `param_shard_dims` shards keep their columns of `split_columns`,
+    the rest stay whole. `utils.checkpoint.to_torch` builds a training
+    model inside a model group from it."""
+    dims = param_shard_dims(params)
+    return _map_tree(
+        lambda name, x: (x if dims[name] is None else
+                         np.ascontiguousarray(local_columns(x, model_rank, m))),
+        params)
+
+
+def gather_params(shards):
+    """The M shards of `shard_params`, in model-rank order -> the full
+    tree (replicated leaves from the first)."""
+    flat = [dict(_leaves(s)) for s in shards]
+    dims = param_shard_dims(shards[0])
+    return _map_tree(
+        lambda name, x: (x if dims[name] is None else
+                         _join([f[name] for f in flat])), shards[0])
+
+
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def map_moments(fn, opt_state, names):
+    """A copy of a `torch.optim.Adam` state dict whose moments of the
+    sharded parameters are fn(index, key, moment); `names[i]` is the
+    name of the parameter at position i."""
+    state = {}
+    for i, st in opt_state["state"].items():
+        if is_sharded(names[i]):
+            st = {k: fn(i, k, v) if k in MOMENTS else v
+                  for k, v in st.items()}
+        state[i] = st
+    return dict(opt_state, state=state)
+
+
+def shard_optimizer_state(opt_state, names, model_rank, m):
+    """A full Adam state dict -> rank `model_rank`'s: the sharded
+    parameters' `exp_avg` and `exp_avg_sq` keep their columns."""
+    return map_moments(
+        lambda i, k, v: local_columns(v, model_rank, m).contiguous(),
+        opt_state, names)
+
+
+def gather_optimizer_state(states, names):
+    """The M ranks' Adam state dicts, in model-rank order -> the full
+    one."""
+    return map_moments(
+        lambda i, k, v: _join([s["state"][i][k] for s in states]),
+        states[0], names)

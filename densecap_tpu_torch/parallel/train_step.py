@@ -24,6 +24,20 @@ are summed by one all-reduce over one flattened buffer a step. This is not
 `DistributedDataParallel`: the set of parameters that take a gradient
 changes at the finetune flip, and DDP's reducer is built once over a
 fixed set.
+
+Under tensor parallelism (`initialize(model_parallel=M)`, a training
+model built by `to_torch` inside the group) fc6, fc7 and the vocab
+projection hold this rank's columns, and the ranks of a model group run
+the same batch slice. Those three collectives then run over the data
+group, the ranks of one model index: over the world, the M copies of
+each replicated gradient and loss would be summed, and ranks of other
+model indices flatten buffers of other lengths. The replicated
+parameters' gradients are then model rank 0's on every rank of the group
+(`_share_replicated_grads`), so the ranks' copies stay equal. Weight
+decay and Adam are elementwise and run on the shards as they are;
+`state_dict` gathers Adam's moments of the sharded parameters to full
+width, and `load_state_dict` takes this rank's columns of them. With
+M = 1 the data group is the world and nothing changes.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from . import distributed
+from .mesh import map_moments, shard_optimizer_state
 from ..utils.image import normalize_uint8_images
 
 
@@ -91,8 +106,9 @@ class Trainer:
     learning_rate: a float, or a function of the update count (e.g.
     `cosine_decay_schedule`), shared by every zone. Built while a process
     group is up, the Trainer runs the data parallel step over it; the
-    parameters are broadcast from rank 0 here, so every rank starts from
-    the same ones.
+    parameters are broadcast from rank 0 here (a shard from the rank of
+    data index 0 with this rank's model index), so every rank starts
+    from the same ones.
     """
 
     def __init__(self, model, learning_rate=1e-5, beta1=0.9, beta2=0.999,
@@ -101,10 +117,22 @@ class Trainer:
         self.learning_rate = learning_rate
         self.hyper = {"betas": (beta1, beta2), "eps": eps}
         self.distributed = distributed.is_initialized()
+        # the collectives' group: the data group under tensor
+        # parallelism, else None (the world)
+        self.group = distributed.data_group()
+        # column-parallel parameters -> their layer's ColumnShard
+        self.shards = {f"{m}.{k}": mod.shard
+                       for m, mod in model.named_modules()
+                       if getattr(mod, "shard", None) is not None
+                       for k in ("w", "b")}
         zones = param_zones(model)
         params = dict(model.named_parameters())
         self.main = [p for n, p in params.items() if zones[n] == "main"]
         self.cnn = [p for n, p in params.items() if zones[n] == "cnn"]
+        # the name of each parameter, by its position in the optimizer
+        self.names = ([n for n in params if zones[n] == "main"]
+                      + [n for n in params if zones[n] == "cnn"])
+        self.sharded = {id(params[n]) for n in self.shards}
         # One Adam for both zones. torch.optim.Adam creates a parameter's
         # state lazily, at its first non-None gradient, with step 0: trunk2
         # has no gradient until the flip, so its m = v = 0 and its count
@@ -117,8 +145,12 @@ class Trainer:
         self.set_finetune(False)
         if self.distributed:
             with torch.no_grad():
-                for p in params.values():
-                    dist.broadcast(p, 0)
+                for n, p in params.items():
+                    if n in self.shards:
+                        dist.broadcast(p, distributed.model_rank(),
+                                       group=self.group)
+                    else:
+                        dist.broadcast(p, 0)
 
     def set_finetune(self, on):
         """Turn trunk2's gradient (and its Adam updates) on or off."""
@@ -131,8 +163,15 @@ class Trainer:
 
     def state_dict(self):
         """What a resumed run needs besides the parameters: the Adam
-        state, the schedule's count and the finetune flag."""
-        return {"optimizer": self.opt.state_dict(), "count": self.count,
+        state, the schedule's count and the finetune flag. Under tensor
+        parallelism the sharded parameters' moments are gathered to full
+        width (a collective: every rank of the model group calls it)."""
+        opt = self.opt.state_dict()
+        if self.shards:
+            opt = map_moments(
+                lambda i, k, v: self.shards[self.names[i]].gather(v), opt,
+                self.names)
+        return {"optimizer": opt, "count": self.count,
                 "finetune_cnn": self.finetune_cnn}
 
     def load_state_dict(self, state):
@@ -140,12 +179,34 @@ class Trainer:
         a model with the same parameters). Before the flip trunk2 has no
         Adam state, and it still has none after the load. The betas and
         eps stay this Trainer's own, as the JAX CLI builds its optimizer
-        from its flags at resume (the learning rate is set every step)."""
-        self.opt.load_state_dict(state["optimizer"])
+        from its flags at resume (the learning rate is set every step).
+        The state is the full model's, whatever M wrote it: under tensor
+        parallelism each rank loads its columns of the moments."""
+        opt = state["optimizer"]
+        if self.shards:
+            opt = shard_optimizer_state(opt, self.names,
+                                        distributed.model_rank(),
+                                        distributed.model_size())
+        self.opt.load_state_dict(opt)
         for group in self.opt.param_groups:
             group.update(self.hyper)
         self.count = int(state["count"])
         self.set_finetune(state["finetune_cnn"])
+
+    def _share_replicated_grads(self, trainable):
+        """Give every rank of the model group its model rank 0's gradients
+        of the replicated parameters (one broadcast of one flattened
+        buffer). The ranks compute them from the same inputs, but on the
+        card a backward that adds with atomics (K2b's d feats after the
+        flip, some of cuDNN's weight gradients) differs in the last bits
+        from run to run, and the ranks' replicated parameters would drift
+        apart."""
+        rep = [p for p in trainable if id(p) not in self.sharded]
+        flat = torch.cat([p.grad.reshape(-1) for p in rep])
+        first = distributed.data_rank() * distributed.model_size()
+        dist.broadcast(flat, first, group=distributed.model_group())
+        for p, g in zip(rep, flat.split([p.numel() for p in rep])):
+            p.grad.copy_(g.view_as(p.grad))
 
     def step(self, batch, generator=None, debug_sampler=None):
         """One update on a batch of device tensors (image, height, width,
@@ -158,7 +219,7 @@ class Trainer:
             w = batch.get("weight")
             denom = (w.float().sum() if w is not None else torch.tensor(
                 float(batch["image"].shape[0]), device=batch["image"].device))
-            dist.all_reduce(denom)
+            dist.all_reduce(denom, group=self.group)
             denom = torch.clamp(denom, min=1.0)
         losses = batched_loss(self.model, batch, generator, debug_sampler,
                               denom=denom)
@@ -173,10 +234,12 @@ class Trainer:
                 # one buffer, flattened in the zones' order (the same on
                 # every rank: the flip happens at the same step on all)
                 flat = torch.cat([p.grad.reshape(-1) for p in trainable])
-                dist.all_reduce(flat)
+                dist.all_reduce(flat, group=self.group)
                 for p, g in zip(trainable, flat.split(
                         [p.numel() for p in trainable])):
                     p.grad.copy_(g.view_as(p.grad))
+            if self.shards:
+                self._share_replicated_grads(trainable)
             for p in trainable:
                 p.grad.add_(p, alpha=wd)
         lr = self.lr_at(self.count)
@@ -187,6 +250,6 @@ class Trainer:
         out = {k: v.detach() for k, v in losses.items()}
         if self.distributed:
             vals = torch.stack(list(out.values()))
-            dist.all_reduce(vals)
+            dist.all_reduce(vals, group=self.group)
             out = dict(zip(out, vals.unbind()))
         return out

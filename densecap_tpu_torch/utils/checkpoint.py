@@ -12,11 +12,15 @@
     `np.asarray`) made it. For inference every weight is stored in the
     compute dtype once; with `train=True` every parameter is an f32
     master that the modules cast at use, and all but trunk1's take
-    gradients.
+    gradients. A training model built inside a model group of M > 1
+    (`parallel.distributed.initialize(model_parallel=M)`) is this rank's
+    shard (`parallel.mesh.shard_params`): fc6, fc7 and the vocab
+    projection keep its columns.
   * `from_torch(model)`: the reverse, a numpy tree with the JAX package's
-    names and layouts, and `save_params(path, tree, extra)`, which writes
-    it as the `.npz` that the JAX `load_params` and `load_params` here
-    read.
+    names and layouts (a sharded model's layers gathered to full width,
+    a collective of its model group), and `save_params(path, tree,
+    extra)`, which writes it as the `.npz` that the JAX `load_params`
+    and `load_params` here read.
   * `convert_torch_densecap(weights)`, `convert_torch_vgg16(weights)`
     and `rename_torchvision_vgg16(state_dict)`: torch-layout weights (the
     reference's t7 read by `utils.t7_reader`, or a torchvision VGG-16)
@@ -25,7 +29,10 @@
     `load_train_state(prefix, cfg, device)`: a training run's pair,
     `<prefix>.npz` (the parameters as above) and `<prefix>.optim.pt`
     (`Trainer.state_dict()` and the iteration, `torch.save`), which the
-    train CLI's `--checkpoint_start_from` resumes from.
+    train CLI's `--checkpoint_start_from` resumes from. The pair is
+    always the full model and the full Adam state (the projection V+1
+    wide), so a run at any `--model_parallel` resumes one written at any
+    other.
 
 A tree that `ops.quant.quantize_for_inference` (or the JAX package's, as
 numpy) has quantized builds an int8 inference model: each quantized layer
@@ -39,6 +46,7 @@ Layouts: JAX conv kernels are HWIO and become OIHW; linear weights stay
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
@@ -51,6 +59,9 @@ from ..models.lstm import LanguageModel
 from ..models.rpn import RPN
 from ..models.vgg16 import TRUNK1_CFG, TRUNK2_CFG, Linear, Recog, Trunk
 from ..ops.quant import QuantLinear, is_quantized
+from ..parallel import distributed
+from ..parallel.mesh import param_shard_dims, shard_params
+from ..parallel.tensor_parallel import ColumnShard
 
 
 def _unflatten(flat):
@@ -84,20 +95,38 @@ def save_params(path, params, extra=None):
     np.savez(path, **flat)
 
 
+def gather_train_state(trainer):
+    """(the full parameter tree, `trainer.state_dict()`): under tensor
+    parallelism both gather over the model group, so every rank of it
+    must call this."""
+    return from_torch(trainer.model), trainer.state_dict()
+
+
+def write_train_state(prefix, params, state, it, meta):
+    """Write the pair from `gather_train_state`'s (params, state):
+    `<prefix>.npz` (with `meta` under `__extra__/meta`) and
+    `<prefix>.optim.pt` (`state` and `iter`)."""
+    save_params(prefix + ".npz", params, extra={"meta": meta})
+    torch.save(dict(state, iter=int(it)), prefix + ".optim.pt")
+
+
 def save_train_state(prefix, trainer, it, meta):
     """Write a training run's pair: `<prefix>.npz` (the model, with
     `meta` under `__extra__/meta`) and `<prefix>.optim.pt`
-    (`trainer.state_dict()` and `iter`)."""
-    save_params(prefix + ".npz", from_torch(trainer.model),
-                extra={"meta": meta})
-    torch.save(dict(trainer.state_dict(), iter=int(it)), prefix + ".optim.pt")
+    (`trainer.state_dict()` and `iter`). Under tensor parallelism every
+    rank of the model group calls it and rank 0 writes."""
+    params, state = gather_train_state(trainer)
+    if distributed.is_main_process():
+        write_train_state(prefix, params, state, it, meta)
 
 
 def load_train_state(prefix, cfg, device):
     """Read the pair of `save_train_state` -> (model, state): the training
-    model of `<prefix>.npz` built with `cfg` on `device`, and the
+    model of `<prefix>.npz` built with `cfg` on `device` (inside a model
+    group, this rank's shard of it; see `to_torch`), and the
     `.optim.pt` dict, whose "iter" is the saved iteration; the rest is for
-    `Trainer.load_state_dict`. The Adam state loads onto the CPU and
+    `Trainer.load_state_dict`, which also takes this rank's columns of
+    the moments. The Adam state loads onto the CPU and
     `Trainer.load_state_dict` moves it to the parameters' device, keeping
     each count on the CPU, as a fresh Adam has it."""
     params, _ = load_params(prefix + ".npz")
@@ -201,7 +230,24 @@ def init_params(cfg, seed=0):
 def to_torch(params, cfg, device, train=False):
     """Numpy (or array-like) parameter tree -> `DenseCap` on `device`:
     an inference model in eval mode, or with `train=True` a training
-    model of f32 masters in train mode."""
+    model of f32 masters in train mode.
+
+    A training model inside a model group of M > 1 keeps this rank's
+    shard of the tree (`mesh.shard_params`, the leaves and dims of
+    `mesh.param_shard_dims`): fc6, fc7 and the vocab projection become
+    column-parallel `Linear`s over the group. The ranks of data index 0
+    must pass the same tree (the same seed or file): `Trainer` then
+    broadcasts each shard from there over its data group."""
+    shards = {}  # layer path -> this rank's ColumnShard of it
+    if train and distributed.model_size() > 1:
+        for name, dim in param_shard_dims(params).items():
+            if dim is not None and name.endswith("/w"):
+                path = name[:-len("/w")]
+                w = functools.reduce(lambda t, k: t[k], path.split("/"),
+                                     params)["w"]
+                shards[path] = ColumnShard.of_this_rank(np.shape(w)[dim])
+        params = shard_params(params, distributed.model_rank(),
+                              distributed.model_size())
     cd = cfg.compute_dtype
     wd = torch.float32 if train else cd  # storage dtype of the weights
 
@@ -217,10 +263,11 @@ def to_torch(params, cfg, device, train=False):
     def linear(p):
         return t(p["w"], wd), t(p["b"])
 
-    def layer(p):
-        """fc6, fc7 and the vocab projection: full precision or int8."""
+    def layer(p, path):
+        """fc6, fc7 and the vocab projection: full precision (or this
+        rank's columns of it), or int8."""
         if not is_quantized(p):
-            return Linear(*linear(p))
+            return Linear(*linear(p), shards.get(path))
         if train:
             raise ValueError("a quantized params tree is inference-only: "
                              "to_torch(..., train=True) refuses it")
@@ -237,13 +284,13 @@ def to_torch(params, cfg, device, train=False):
         trunk(TRUNK2_CFG, params["trunk2"]),
         RPN(conv(rp["conv"], torch.float32), conv(rp["box"], torch.float32),
             conv(rp["score"], torch.float32), cd),
-        Recog(layer(params["recog"]["fc6"]), layer(params["recog"]["fc7"]),
-              cd),
+        Recog(layer(params["recog"]["fc6"], "recog/fc6"),
+              layer(params["recog"]["fc7"], "recog/fc7"), cd),
         linear(params["objectness"]),
         linear(params["box_reg"]),
         LanguageModel(*linear(lm["img_enc"]), t(lm["embed"]),
                       t(lm["lstm"]["Wx"], wd), t(lm["lstm"]["Wh"], wd),
-                      t(lm["lstm"]["b"]), layer(lm["proj"]), cd),
+                      t(lm["lstm"]["b"]), layer(lm["proj"], "lm/proj"), cd),
     )
     if not train:
         return model.eval()
@@ -266,6 +313,9 @@ def from_torch(model):
         return {name: conv(tr.weights[name], tr.biases[name])
                 for name in tr.weights}
 
+    def linear(layer):
+        return dict(zip("wb", map(n, layer.full())))
+
     rpn, rec, lm = model.rpn, model.recog, model.lm
     return {
         "trunk1": trunk(model.trunk1),
@@ -273,14 +323,13 @@ def from_torch(model):
         "rpn": {"conv": conv(rpn.conv_w, rpn.conv_b),
                 "box": conv(rpn.box_w, rpn.box_b),
                 "score": conv(rpn.score_w, rpn.score_b)},
-        "recog": {"fc6": {"w": n(rec.fc6.w), "b": n(rec.fc6.b)},
-                  "fc7": {"w": n(rec.fc7.w), "b": n(rec.fc7.b)}},
+        "recog": {"fc6": linear(rec.fc6), "fc7": linear(rec.fc7)},
         "objectness": {"w": n(model.obj_w), "b": n(model.obj_b)},
         "box_reg": {"w": n(model.box_w), "b": n(model.box_b)},
         "lm": {"img_enc": {"w": n(lm.enc_w), "b": n(lm.enc_b)},
                "embed": n(lm.embed_w),
                "lstm": {"Wx": n(lm.Wx), "Wh": n(lm.Wh), "b": n(lm.b)},
-               "proj": {"w": n(lm.proj.w), "b": n(lm.proj.b)}},
+               "proj": linear(lm.proj)},
     }
 
 

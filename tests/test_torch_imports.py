@@ -1,8 +1,8 @@
 """The port never imports JAX, optax, orbax or the JAX package: the machine
 with the card has none of them. Checked in a fresh interpreter, so this
 test process's own imports do not count. Also the help epilog that names
-the JAX CLIs' flags the port leaves out (and no longer --data_parallel,
-which it has)."""
+the JAX CLIs' flags the port leaves out (and no longer --data_parallel or
+--model_parallel, which it has)."""
 
 import os
 import subprocess
@@ -33,6 +33,7 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.parallel.distributed",
            "densecap_tpu_torch.utils.checkpoint",
            "densecap_tpu_torch.parallel.mesh",
+           "densecap_tpu_torch.parallel.tensor_parallel",
            "densecap_tpu_torch.utils.t7_reader",
            "densecap_tpu_torch.cli.convert_t7",
            "densecap_tpu_torch.data.preprocess",
@@ -57,13 +58,15 @@ def test_port_imports_no_jax(module):
 def test_epilog_names_the_flags_left_out():
     from densecap_tpu_torch.cli import _common, evaluate_model, train
 
-    for flag in ("--roi_align", "--model_parallel", "--uint8_pipe"):
+    for flag in ("--roi_align", "--uint8_pipe"):
         assert flag in _common.NOT_PORTED
-    assert "--data_parallel" not in _common.NOT_PORTED  # ported
+    for flag in ("--data_parallel", "--model_parallel"):  # ported
+        assert flag not in _common.NOT_PORTED
     assert "--data_parallel" in evaluate_model.build_argparser().format_help()
-    help_text = train.build_argparser().format_help()
-    assert "--model_parallel" in help_text  # the epilog
-    for flag in ("--checkpoint_start_from", "--canvas_buckets", "--timing",
-                 "--profile_dir", "--coordinator_address", "--num_processes",
-                 "--process_id"):
+    parser = train.build_argparser()
+    assert "--model_parallel" not in parser.epilog
+    help_text = parser.format_help()
+    for flag in ("--model_parallel", "--checkpoint_start_from",
+                 "--canvas_buckets", "--timing", "--profile_dir",
+                 "--coordinator_address", "--num_processes", "--process_id"):
         assert flag in help_text
