@@ -3,8 +3,9 @@ full-width training (canvas buckets, the batch weight, resume, data
 parallel ranks, tensor-parallel ranks, a profiler trace), evaluation,
 offline inference, int8
 serving, the directory daemon, the native host I/O, data-parallel
-evaluation and serving over model replicas, and the reference's t7
-checkpoint path.
+evaluation and serving over model replicas, the reference's t7
+checkpoint path, and a short learning check (a small model trained from
+scratch must detect its scenes).
 
     python3 chip_smoke.py [--before DIR]
 
@@ -86,8 +87,8 @@ its result on its own line; any failure raises and exits non-zero:
      K2 and both K2b instances launched on each, every step within
      [train reference]'s bounds of one unsharded process's step from the
      same state (where |g| is large, bf16 within TP_BF16_LARGE_G), and
-     the ranks' checkpoint resumed at world 1 within the floor of the
-     unsharded save of the same state; [profile]
+     the ranks' checkpoint bit-equal to the unsharded save of the same
+     state; [profile]
      torch.profiler over three
      flagship frozen steps on the square and three on the bucket (traces
      under build/profile): device time per step of each, the square's top
@@ -118,7 +119,7 @@ its result on its own line; any failure raises and exits non-zero:
  14. [daemon] serve.daemon.scan_once on 8 JPEGs, a truncated JPEG and a
      .txt at the daemon's defaults (480 px, 50 proposals): 8 JSONs, the
      bad files left in place;
- 15. [native] whether `make -C native` built libdcio / libdcgeom here
+ 15. [native] whether native/Makefile built libdcio / libdcgeom here
      (the error if not; this part runs before phase 9, whose evaluator
      loads libdcgeom, so the build is not timed), then the run_model CLI
      (--device cuda) on 8 JPEG frames and a full-width checkpoint .npz
@@ -140,13 +141,28 @@ its result on its own line; any failure raises and exits non-zero:
      RPN, fc6 and an LSTM step of the converted model (f32) against the
      raw torch-layout weights within 1e-4 of scale, and the batch-8
      engine on the converted model (16 frames, captions from the
-     checkpoint's vocabulary); write, read, convert and load seconds.
+     checkpoint's vocabulary); write, read, convert and load seconds;
+ 18. [learn] (after phase 15's build of libdcgeom, before phase 9) the
+     learning check of scripts/torch_overfit_sanity.py at its small
+     config (192 px, fc 256, LSTM 64): trained from scratch on the card
+     for LEARN_STEPS steps (finetuning on, cosine lr over those steps),
+     then the RPN's recall@50 on 4 scenes and the train-set mAP and detmap at batch 1
+     through the evaluator; ms/step, detmap, mAP and recall printed.
+     The inputs of the last K1 and K2 call at each of that run's shapes
+     (training: B = 4 on a 12x12x512 map, the map taking a gradient;
+     evaluation at batch 1: the RPN's and the final NMS, K2 on the kept
+     boxes) are kept, and after the run each kernel is held to its plain
+     version on them: K1 identical, K2 within ROI_TOL and K2b's d feats
+     and d boxes within BWD_FEATS_TOL / BWD_BOXES_TOL, of the largest
+     plain entry (these shapes join the kernels line as "learn_shapes").
+     It fails if one disagrees, or unless detmap > 0.15, the JAX
+     script's gate.
 
-Phases 7 (and its thin-frame part), 9-11 and 13-17 each drive their path
+Phases 7 (and its thin-frame part), 9-11 and 13-18 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
-K2 must launch on each (in 16, with one replica and with two). So do
-[train], [train buckets] and [tensor parallel]'s ranks, where K2, K2b
-and K3 must launch.
+K2 must launch on each (in 16, with one replica and with two), and in 18
+also K2b's d feats instance. So do [train], [train buckets] and [tensor
+parallel]'s ranks, where K2, K2b and K3 must launch.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -1570,6 +1586,36 @@ def resumed_trainer(prefix, cfg, dev):
     return trainer
 
 
+def tree_equal(x, y):
+    """Bit-equality of two nested dicts / lists of tensors, arrays and
+    plain values."""
+    if isinstance(x, dict):
+        return (isinstance(y, dict) and x.keys() == y.keys()
+                and all(tree_equal(x[k], y[k]) for k in x))
+    if isinstance(x, (list, tuple)):
+        return len(x) == len(y) and all(map(tree_equal, x, y))
+    if isinstance(x, torch.Tensor):
+        return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                and torch.equal(x, y))
+    if isinstance(x, np.ndarray):
+        return x.dtype == y.dtype and np.array_equal(x, y)
+    return x == y
+
+
+def same_pair(a, b):
+    """Whether the pairs at prefixes a and b hold bit-equal parameters
+    and Adam state (moments and counts), and the same schedule count,
+    finetune flag and iteration."""
+    params, opt = [], []
+    for prefix in (a, b):
+        params.append(load_params(prefix + ".npz")[0])
+        st = torch.load(prefix + ".optim.pt", map_location="cpu",
+                        weights_only=True)
+        opt.append((st["optimizer"]["state"], st["count"],
+                    st["finetune_cnn"], st["iter"]))
+    return tree_equal(*params) and tree_equal(*opt)
+
+
 def cpu_params(path, cfg):
     """An .npz's parameters by the training model's names, on the CPU."""
     model = to_torch(load_params(path)[0], cfg, "cpu", train=True)
@@ -1617,10 +1663,11 @@ def unsharded_save(tmp, cfg, dev, params):
 
 def tp_run(dev, params, dtype):
     """The two ranks at `dtype` (tp_worker), then each of their steps
-    from the same state in one unsharded process, and the second step
-    from their first pair and from the unsharded save of the same state.
-    -> (the ranks' records, each step's step_diff, the resumed steps'
-    difference, its floor)."""
+    from the same state in one unsharded process (after the first, a
+    world-1 Trainer resumed from the pair the ranks wrote before it), and
+    their first pair against the unsharded save of the same state.
+    -> (the ranks' records, each step's step_diff, whether the ranks'
+    first pair equals the unsharded save bit for bit, the wall)."""
     cfg = tp_config(dtype)
     work = ROOT / "build"
     work.mkdir(exist_ok=True)
@@ -1641,7 +1688,7 @@ def tp_run(dev, params, dtype):
                   f"replicated parameters equal to rank 1's after each "
                   f"step {s['equal']}; launches {s['launches']}")
         batches = tp_batches(cfg, dev)
-        errs, after_first = [], None
+        errs = []
         for i, batch in enumerate(batches):
             trainer = (resumed_trainer(f"{tmp}/tp{i - 1}", cfg, dev) if i
                        else Trainer(to_torch(params, cfg, dev, train=True),
@@ -1665,27 +1712,12 @@ def tp_run(dev, params, dtype):
                   f"{share:.1e} of its largest); total_loss "
                   f"{saved[0]['losses'][i]['total_loss']:.6f} vs "
                   f"{ref[0]['total_loss']:.6f}")
-            if i == 1:
-                after_first = {n: p for n, (p, _) in ref[1].items()}
             del ref, got
-        # the second step from the ranks' first pair, again (the floor),
-        # and from the unsharded save of the same state
-        ends = []
-        for prefix in (f"{tmp}/tp0", unsharded_save(tmp, cfg, dev, params)):
-            trainer = resumed_trainer(prefix, cfg, dev)
-            gen = torch.Generator(device=dev)
-            gen.set_state(saved[0]["gen"][1])
-            ends.append({n: p for n, (p, _) in
-                         one_step(trainer, batches[1], dev,
-                                  generator=gen)[1].items()})
-            del trainer
-    floor = max_diff(ends[0], after_first)
-    err = max_diff(ends[1], after_first)
-    print(f"[tensor parallel] {dtype}: the ranks' pair after step 1 resumed "
-          f"at world 1, step 2 from it against from the unsharded save of "
-          f"the same state: max parameter diff {err:.3e} (floor, two loads "
-          f"of the ranks' pair: {floor:.3e})")
-    return saved, errs, err, floor, wall
+        pair_equal = same_pair(f"{tmp}/tp0",
+                               unsharded_save(tmp, cfg, dev, params))
+    print(f"[tensor parallel] {dtype}: the ranks' pair after step 1 "
+          f"bit-equal to the unsharded save of the same state: {pair_equal}")
+    return saved, errs, pair_equal, wall
 
 
 def phase_tensor_parallel(dev, params):
@@ -1700,16 +1732,16 @@ def phase_tensor_parallel(dev, params):
     both dtypes: the ranks' replicated parameters bit-equal after every
     step and their losses equal; each rank launched K3, K2 and both K2b
     instances; every step within the [train reference] bounds, where |g|
-    is large within TP_LARGE_G of its dtype; the pair the ranks wrote
-    after their first step, loaded into a world-1 Trainer, takes the next
-    step within the floor of two such loads (0 on a frozen step:
-    bit-equal) of one resumed from the unsharded save of the same state.
+    is large within TP_LARGE_G of its dtype (each step after the first
+    resumes the ranks' pair in a world-1 Trainer); the pair the ranks
+    wrote after their first step bit-equal (parameters, Adam moments and
+    counts, schedule count, flag) to the unsharded save of the same state.
     gloo moves every collective through the host, so the ranks' ms/step
     show correctness, not speed. Returns the bf16 run's rank 0 launches
     and a summary."""
     summary, ok = {}, True
     for dtype in TP_DTYPES:
-        saved, errs, err, resume_floor, wall = tp_run(dev, params, dtype)
+        saved, errs, pair_equal, wall = tp_run(dev, params, dtype)
         torch.cuda.empty_cache()
         equal = (all(all(s["equal"]) for s in saved)
                  and saved[0]["losses"] == saved[1]["losses"])
@@ -1718,12 +1750,12 @@ def phase_tensor_parallel(dev, params):
         print(f"[tensor parallel] {dtype}: ranks bit-equal={equal}; every "
               f"step within the [train reference] bounds of one process "
               f"(where |g| is large {TP_LARGE_G[dtype]:.2e})={within}; "
-              f"resumed step {err:.3e} (floor {resume_floor:.3e})")
-        ok &= equal and within and err <= resume_floor
+              f"pair bit-equal={pair_equal}")
+        ok &= equal and within and pair_equal
         summary[dtype] = {"ms_per_step": [s["ms"] for s in saved],
                           "peak_bytes": [s["peak_bytes"] for s in saved],
-                          "step_errs": errs, "resume_err": err,
-                          "resume_floor": resume_floor, "wall_s": wall}
+                          "step_errs": errs, "pair_equal": pair_equal,
+                          "wall_s": wall}
     if not ok:
         raise AssertionError("[tensor parallel] the model group disagrees "
                              "with one unsharded process")
@@ -1799,6 +1831,156 @@ def phase_profile(dev, params, steps=3):
     return {"top": top, **{k: {f: r[f] for f in ("device_ms_per_step",
                                                  "step_ms", "report")}
                            for k, r in runs.items()}}
+
+
+LEARN_STEPS = 600  # [learn]: from the learning curves in PERF.md section 6
+
+
+def capturing(fn, store):
+    """fn (nms_cuda or roi_align_cuda) keeping, at each shape and setting
+    it is called with, the inputs of its last call (detached), in
+    `store`."""
+    def sig(v):
+        return tuple(v.shape) if isinstance(v, torch.Tensor) else v
+
+    def wrapper(*args, **kw):
+        t = args[0]
+        key = (*map(sig, args), *((k, sig(v)) for k, v in sorted(kw.items())),
+               t.requires_grad)
+        store[key] = ([a.detach() if isinstance(a, torch.Tensor) else a
+                       for a in args],
+                      {k: v.detach() if isinstance(v, torch.Tensor) else v
+                       for k, v in kw.items()}, t.requires_grad)
+        return fn(*args, **kw)
+    return wrapper
+
+
+def learn_nms_check(args, kw):
+    """K1 against nms_plain on one captured call -> its record."""
+    boxes, scores, thr, k = args
+    with torch.no_grad():
+        got = nms_mod.nms_cuda(*args, **kw)
+        ref = nms_mod.nms_plain(*args, **kw)
+    same = all(torch.equal(g, r) for g, r in zip(got, ref))
+    shape = (f"B={boxes.shape[0]} {boxes.shape[1]}->{k} @{thr}"
+             + (" presorted" if kw.get("presorted") else ""))
+    print(f"[learn] K1 at the path's shape {shape}: identical={same} "
+          f"kept/img={ref[1].sum(1).tolist()}")
+    return {"shape": shape, "identical": same, "max_abs_err": float(
+        (got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0}
+
+
+def learn_roi_check(args, grad, seed):
+    """K2 (and with `grad` K2b's d feats instance) against the plain
+    version and its autograd on one captured call -> its record. Errors
+    relative to the largest plain entry: the trained map's scale is not
+    phase_roi's unit normal."""
+    feats, boxes = args[0].clone(), args[1].clone()
+    rest = args[2:]
+    shape = (f"{boxes.shape[0]}x{boxes.shape[1]} boxes on "
+             f"{tuple(feats.shape)} f32")
+    rec = {"shape": shape}
+    with torch.no_grad():
+        got = roi_mod.roi_align_cuda(feats, boxes, *rest)
+        ref = roi_mod.roi_align_plain(feats, boxes, *rest)
+    rec["max_abs_err"] = float((got - ref).abs().max())
+    rec["rel_err"] = rec["max_abs_err"] / float(ref.abs().max())
+    ok = rec["rel_err"] <= ROI_TOL
+    if grad:
+        gen = torch.Generator(device=feats.device).manual_seed(seed)
+        gout = torch.randn(ref.shape, generator=gen, device=feats.device)
+        grads = []
+        for fn in (roi_mod.roi_align_cuda, roi_mod.roi_align_plain):
+            f = feats.clone().requires_grad_()
+            b = boxes.clone().requires_grad_()
+            grads.append(torch.autograd.grad(fn(f, b, *rest), [f, b], gout))
+        for name, g, r, tol in (("d_feats", grads[0][0], grads[1][0],
+                                 BWD_FEATS_TOL),
+                                ("d_boxes", grads[0][1], grads[1][1],
+                                 BWD_BOXES_TOL)):
+            rec[name + "_rel_err"] = float((g - r).abs().max()
+                                           / r.abs().max())
+            ok &= rec[name + "_rel_err"] <= tol
+        rec["max_abs_err"] = max(rec["max_abs_err"], *(
+            float((g - r).abs().max()) for g, r in zip(*grads)))
+    print(f"[learn] K2{' + K2b (d feats)' if grad else ''} at the path's "
+          f"shape {shape}: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rec.items() if k.endswith("err"))
+          + f" (tol {ROI_TOL}"
+          + (f", d feats {BWD_FEATS_TOL}, d boxes {BWD_BOXES_TOL}" if grad
+             else "") + ", of the largest plain entry)")
+    rec["ok"] = ok
+    return rec
+
+
+def phase_learn(dev):
+    """The small overfit config of scripts/torch_overfit_sanity.py trained
+    from scratch on the card for LEARN_STEPS steps (its cosine over those
+    steps, finetuning on, B = 4 of the 16 scenes), then the RPN's
+    recall@50 on 4 scenes and the train-set mAP at batch 1. The inputs of
+    the last K1 and K2 call at each shape of that run are kept, and after
+    it (outside the counted run) each kernel is held to its plain version
+    on them: K1 identical, K2 within ROI_TOL and, where the map takes a
+    gradient, K2b's d feats and d boxes within BWD_FEATS_TOL and
+    BWD_BOXES_TOL, of the largest plain entry. Fails unless every check
+    holds and detmap > 0.15, the JAX script's gate. -> (launches, summary,
+    {kernel: its checks' records})."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_overfit_sanity as overfit
+    import torch_synth_scenes as scenes
+
+    cfg = overfit.overfit_config()
+    images, gt_boxes, gt_labels, gt_valid, texts = scenes.overfit_scenes()
+    S = cfg.image_size
+    data = overfit.Scenes((images, gt_boxes, gt_labels, gt_valid), dev, S, S,
+                          texts)
+
+    def run():
+        trainer, stats = overfit.train(cfg, data, LEARN_STEPS, overfit.BATCH,
+                                       alpha=0.02, log_every=250,
+                                       busy_window=0)
+        rec = overfit.rpn_recall(trainer.model, data)
+        res, _ = overfit.evaluate(trainer.model, data, overfit.BOX_IDX2TOK)
+        return stats, rec, res
+
+    calls = {"nms": {}, "roi_align": {}}
+    plain = nms_mod.nms_cuda, roi_mod.roi_align_cuda
+    nms_mod.nms_cuda = capturing(plain[0], calls["nms"])
+    roi_mod.roi_align_cuda = capturing(plain[1], calls["roi_align"])
+    try:
+        t0 = time.perf_counter()
+        (stats, rec, res), counts = read_launches(run)
+        wall = time.perf_counter() - t0
+    finally:
+        nms_mod.nms_cuda, roi_mod.roi_align_cuda = plain
+    print(f"[learn] small overfit config from scratch: {LEARN_STEPS} steps "
+          f"at B={overfit.BATCH}, {stats['ms_per_step']:.2f} ms/step (host "
+          f"clock); {wall:.1f} s with the evaluation")
+    print(f"[learn] RPN recall@50 iou0.5 on 4 scenes: "
+          f"{[round(r, 3) for r in rec]}")
+    print(f"[learn] train-set mAP {res['map']:.4f} detmap {res['detmap']:.4f} "
+          f"({res['score_method']}); launches {counts}")
+    need_launches(counts, ("nms", "roi_align", "roi_align_bwd_feats"),
+                  "learn")
+    checks = {"nms": [learn_nms_check(a, kw)
+                      for a, kw, _ in calls["nms"].values()],
+              "roi_align": [], "roi_align_bwd": []}
+    for i, (a, _, grad) in enumerate(calls["roi_align"].values()):
+        checks["roi_align_bwd" if grad else "roi_align"].append(
+            learn_roi_check(a, grad, seed=30 + i))
+    if not (all(c["identical"] for c in checks["nms"])
+            and all(c["ok"] for c in checks["roi_align"]
+                    + checks["roi_align_bwd"])
+            and checks["nms"] and checks["roi_align"]
+            and checks["roi_align_bwd"]):
+        raise AssertionError(f"[learn] a kernel disagrees with its plain "
+                             f"version at the path's shapes: {checks}")
+    if not res["detmap"] > overfit.DETMAP_GATE:
+        raise AssertionError(f"[learn] detection never learned: detmap "
+                             f"{res['detmap']:.4f} <= {overfit.DETMAP_GATE}")
+    return counts, {"steps": LEARN_STEPS, "ms_per_step": stats["ms_per_step"],
+                    "wall_s": wall, "map": res["map"],
+                    "detmap": res["detmap"], "rpn_recall_at_50": rec}, checks
 
 
 def phase_http(engine, frames):
@@ -2798,7 +2980,7 @@ def phase_daemon(dev, params, vocab):
 
 
 def phase_native():
-    """Whether `make -C native` built each native library here."""
+    """Whether native/Makefile built each native library here."""
     status = {}
     for name in ("dcio", "dcgeom"):
         ok = native_lib.is_available(name)
@@ -2855,9 +3037,15 @@ def main(argv=None):
     profile = phase_profile(dev, params)
     torch.cuda.empty_cache()
     vocab = {i: f"w{i}" for i in range(1, FLAGSHIP.vocab_size + 1)}
-    # set-up: `make -C native` runs here, not inside a timed phase (the
-    # evaluator loads libdcgeom at its first image)
+    # set-up: the native libraries build here, not inside a timed phase
+    # (the evaluator loads libdcgeom at its first image)
     native = phase_native()
+    learn_counts, learn, learn_checks = phase_learn(dev)
+    for k, shapes in ((k1, learn_checks["nms"]), (k2, learn_checks["roi_align"]),
+                      (k2b, learn_checks["roi_align_bwd"])):
+        k["learn_shapes"] = shapes
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               *(c["max_abs_err"] for c in shapes))
     model = to_torch(params, FLAGSHIP, dev)
     paths = {"serve": serve, "eval": phase_eval(dev, model, vocab),
              "beam": phase_beam(dev, model),
@@ -2883,10 +3071,12 @@ def main(argv=None):
         {"libraries": native, "decode_s_per_image": decode_s}))
     print(f"[data parallel] summary {json.dumps(data_parallel)}")
     print(f"[t7] summary {json.dumps({'host_s': t7_secs})}")
+    print(f"[learn] summary {json.dumps(learn)}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
     paths["tensor parallel"] = tp_counts
-    train_paths = ("train", "train buckets", "tensor parallel")
+    paths["learn"] = learn_counts
+    train_paths = ("train", "train buckets", "tensor parallel", "learn")
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",

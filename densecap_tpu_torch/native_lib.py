@@ -1,30 +1,36 @@
 """ctypes bindings for the native host runtime (twin of
-densecap_tpu/native_lib.py): `native/libdcio.so` (threaded JPEG decode,
-resize and canvas fill) and `native/libdcgeom.so` (the evaluator's box
-merge and greedy assignment).
+densecap_tpu/native_lib.py): `libdcio.so` (threaded JPEG decode, resize
+and canvas fill) and `libdcgeom.so` (the evaluator's box merge and greedy
+assignment), built from the sources in `native/`.
 
-The libraries sit in `native/` at the repo root and are loaded by path.
-The first request builds a missing one with `make -C native`, and a build
-whose ABI version is not the one these bindings were written for is
-rebuilt from scratch (a stale library would be called with the wrong
-arguments). When `make` fails, for example without the libjpeg headers,
-`is_available` is False, `build_error` says why, and the callers take
-their PIL / numpy paths, as the JAX package's do. Host code only: nothing
-here touches the device.
+The port builds its own copies into `build/native/`, never into
+`native/`, where the JAX package's loader builds. The first request
+builds a missing library with `native/Makefile` (its rule and flags), in
+a directory of its own, and publishes it with `os.replace` under a lock
+file in `build/native/`: processes that load at once build it once, and
+none ever opens a half-written file. The published file is named by the
+ABI version these bindings were written for (`libdcgeom_abi1.so`), so a
+library of another version is never found where they look: a new
+version builds beside it. When `make` fails, for example without the
+libjpeg headers, `is_available` is False, `build_error` says why, and
+the callers take their PIL / numpy paths, as the JAX package's do. Host code only: nothing here touches the device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NATIVE_DIR = os.path.join(ROOT, "native")
+NATIVE_DIR = os.path.join(ROOT, "native")  # sources and Makefile
+BUILD_DIR = os.path.join(ROOT, "build", "native")
 # ABI of each library (dc<name>_abi_version in its .cpp)
 _ABI = {"dcio": 4, "dcgeom": 1}
 _P = ctypes.c_void_p
@@ -55,54 +61,62 @@ build_error = {}
 
 
 def _open(path, name):
-    """dlopen `path` and declare the signatures; None if its ABI is not
-    the expected one (or it predates ABI versions)."""
+    """dlopen `path`, check its ABI version and declare the signatures."""
     lib = ctypes.CDLL(path)
-    try:
-        version = getattr(lib, f"{name}_abi_version")
-    except AttributeError:
-        return None
+    version = getattr(lib, f"{name}_abi_version")()
+    if version != _ABI[name]:  # before the signatures: it may lack some
+        raise RuntimeError(f"{path} reports ABI version {version}, these "
+                           f"bindings are for {_ABI[name]}")
     for fn, (restype, argtypes) in _SIGNATURES[name].items():
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
-    return lib if version() == _ABI[name] else None
+    return lib
 
 
-def _make(name, force=False):
-    cmd = ["make", "-C", NATIVE_DIR] + (["-B"] if force else []) + [
-        f"lib{name}.so"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}): "
-                           f"{(proc.stderr or proc.stdout).strip()[-2000:]}")
+def library_path(name):
+    """Where lib<name>.so of the expected ABI version is published."""
+    return os.path.join(BUILD_DIR, f"lib{name}_abi{_ABI[name]}.so")
+
+
+def _build(name):
+    """Build lib<name>.so and publish it at `library_path(name)`, unless
+    another process has published it while this one waited for the
+    lock."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = library_path(name)
+    with open(os.path.join(BUILD_DIR, f"lib{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so):
+            return
+        work = tempfile.mkdtemp(prefix=f"lib{name}.", dir=BUILD_DIR)
+        try:
+            # the Makefile's own rule, run in `work`, finding the sources
+            # in native/ through VPATH; -B, since VPATH would also find
+            # (and call up to date) a library the JAX loader built there
+            cmd = ["make", "-B", "-C", work, "-f",
+                   os.path.join(NATIVE_DIR, "Makefile"),
+                   f"VPATH={NATIVE_DIR}", f"lib{name}.so"]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(
+                    f"{' '.join(cmd)} failed ({proc.returncode}): "
+                    f"{(proc.stderr or proc.stdout).strip()[-2000:]}")
+            os.replace(os.path.join(work, f"lib{name}.so"), so)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def _load(name):
     with _lock:
         if name in _libs:
             return _libs[name]
-        so = os.path.join(NATIVE_DIR, f"lib{name}.so")
         lib = None
         try:
-            if not os.path.exists(so):
-                _make(name)
-            lib = _open(so, name)
-            if lib is None:
-                # a stale build: rebuild, and load the fresh one through a
-                # copy of its own name (dlopen caches by path, so the same
-                # path would hand back the stale handle)
-                _make(name, force=True)
-                fresh = os.path.join(ROOT, "build", "native",
-                                     f"lib{name}_abi{_ABI[name]}.so")
-                os.makedirs(os.path.dirname(fresh), exist_ok=True)
-                shutil.copy2(so, fresh)
-                lib = _open(fresh, name)
-                if lib is None:
-                    raise RuntimeError(f"lib{name}.so still reports another "
-                                       "ABI version after a rebuild")
-        except (OSError, RuntimeError) as e:
+            if not os.path.exists(library_path(name)):
+                _build(name)
+            lib = _open(library_path(name), name)
+        except (OSError, RuntimeError, AttributeError) as e:
             build_error[name] = str(e)
-            lib = None
         _libs[name] = lib
         return lib
 

@@ -1,5 +1,5 @@
-"""Box geometry: coordinate conversions, pascal IoU, clipping and the
-evaluator's merge.
+"""Box geometry: coordinate conversions, rescaling, IoU, clipping, the
+evaluator's merge and box recall.
 
 Twin of `densecap_tpu/ops/boxes.py`. Boxes are `(..., 4)` in the
 reference's 1-indexed pixel convention; every torch function broadcasts
@@ -25,11 +25,37 @@ def x1y1x2y2_to_xcycwh(boxes):
                        dim=-1)
 
 
+def xywh_to_x1y1x2y2(boxes):
+    """(x, y, w, h) -> (x1, y1, x2, y2) with inclusive corners."""
+    x, y, w, h = boxes.unbind(-1)
+    return torch.stack([x, y, x + w - 1, y + h - 1], dim=-1)
+
+
+def x1y1x2y2_to_xywh(boxes):
+    """(x1, y1, x2, y2) -> (x, y, w, h): width x2 - x1 + 1."""
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    return torch.stack([x0, y0, x1 - x0 + 1, y1 - y0 + 1], dim=-1)
+
+
+def xywh_to_xcycwh(boxes):
+    """(x, y, w, h) -> (xc, yc, w, h) by exact division (the JAX package's
+    float path of the reference's conversion)."""
+    x, y, w, h = boxes.unbind(-1)
+    return torch.stack([x + w / 2.0, y + h / 2.0, w, h], dim=-1)
+
+
 def xcycwh_to_xywh(boxes):
     """(xc, yc, w, h) -> (x, y, w, h): the corners of `xcycwh_to_x1y1x2y2`,
     then width x2 - x1 + 1 (the JAX package's composition, op for op)."""
-    x0, y0, x1, y1 = xcycwh_to_x1y1x2y2(boxes).unbind(-1)
-    return torch.stack([x0, y0, x1 - x0 + 1, y1 - y0 + 1], dim=-1)
+    return x1y1x2y2_to_xywh(xcycwh_to_x1y1x2y2(boxes))
+
+
+def scale_boxes_xywh(boxes, frac):
+    """Rescale (x, y, w, h) boxes between image scales: x, y move to
+    0-based, everything scales by `frac`, x, y move back to 1-based."""
+    x, y, w, h = boxes.unbind(-1)
+    return torch.stack([(x - 1) * frac + 1, (y - 1) * frac + 1, w * frac,
+                        h * frac], dim=-1)
 
 
 def iou_cwh(boxes1, boxes2):
@@ -99,6 +125,11 @@ def clip_boxes(boxes, x_max, y_max):
     return x1y1x2y2_to_xcycwh(clipped), valid
 
 
+def iou_matrix(boxes):
+    """Symmetric (N, N) pascal IoU of (N, 4) x1y1x2y2 boxes; diagonal 1."""
+    return iou_pascal(boxes, boxes)
+
+
 def merge_boxes(boxes, thr):
     """Greedy grouping of (N, 4) x1y1x2y2 boxes by pascal IoU >= thr, in
     numpy (the evaluator's merge of overlapping ground truth).
@@ -114,13 +145,7 @@ def merge_boxes(boxes, thr):
     b = np.asarray(boxes, dtype=np.float64)
     if len(b) == 0:
         return []
-    area = (b[:, 2] - b[:, 0] + 1.0) * (b[:, 3] - b[:, 1] + 1.0)
-    iw = np.maximum(np.minimum(b[:, None, 2], b[None, :, 2])
-                    - np.maximum(b[:, None, 0], b[None, :, 0]) + 1.0, 0.0)
-    ih = np.maximum(np.minimum(b[:, None, 3], b[None, :, 3])
-                    - np.maximum(b[:, None, 1], b[None, :, 1]) + 1.0, 0.0)
-    inter = iw * ih
-    D = inter / (area[:, None] + area[None, :] - inter)
+    D = iou_matrix(torch.from_numpy(b)).numpy()
     groups = []
     while True:
         good = D >= thr
@@ -133,3 +158,23 @@ def merge_boxes(boxes, thr):
         D[members, :] = 0
         D[:, members] = 0
     return groups
+
+
+def eval_box_recall(boxes, gt_boxes, ns=(100, 200, 300),
+                    iou_threshs=(0.5, 0.7, 0.9)):
+    """Box recall@n at several IoU thresholds: the share of the (M, 4)
+    xcycwh gt boxes that one of the first n of the (N, 4) xcycwh `boxes`
+    overlaps at IoU > thr, by the continuous convention (`iou_cwh`).
+
+    Returns {f"{thr:.2f}_recall_at_{n}": recall}, only for n <= N.
+    """
+    ious = iou_cwh(boxes, gt_boxes)  # N x M
+    M = gt_boxes.shape[0]
+    stats = {}
+    for thr in iou_threshs:
+        hit = torch.cumsum((ious > thr).int(), dim=0) > 0  # N x M
+        recalls = (hit.sum(dim=1) / M).tolist()  # N
+        for n in ns:
+            if n <= len(recalls):
+                stats[f"{thr:.2f}_recall_at_{n}"] = recalls[n - 1]
+    return stats

@@ -63,15 +63,12 @@ def convert(args):
     import jax
     import numpy as np
     import optax
-    import torch
-    from optax.transforms import MaskedNode
 
     from densecap_tpu.config import DenseCapConfig as JaxConfig
     from densecap_tpu.parallel import train_step as jts
     from densecap_tpu.utils import checkpoint as jckpt
     from densecap_tpu_torch.config import DenseCapConfig
-    from densecap_tpu_torch.parallel.train_step import Trainer, param_zones
-    from densecap_tpu_torch.utils.checkpoint import load_params, to_torch
+    from densecap_tpu_torch.utils.checkpoint import load_params
 
     _, extra = load_params(args.npz)
     meta = str(extra["meta"])
@@ -84,15 +81,32 @@ def convert(args):
                                  learning_rate=jax_lr)
     state = jckpt.load_train_state(args.state_dir, template)
     params = jax.tree_util.tree_map(np.asarray, state.params)
-    cfg = DenseCapConfig.from_json(config)
+
+    trainer = trainer_from_jax(
+        params, state.opt_state, DenseCapConfig.from_json(config),
+        int(state.step), bool(state.finetune_cnn))
+    return trainer, int(state.step), meta
+
+
+def trainer_from_jax(params, opt_state, cfg, step, finetune_cnn,
+                     learning_rate=1e-5):
+    """A port Trainer over a CPU model of `params` (a numpy tree) that
+    holds the JAX optimizer state `opt_state` (`train_step.make_optimizer`'s:
+    each zone's Adam count and moments, and the schedule's count when
+    the learning rate is a schedule; `step` stands in for it otherwise)."""
+    import torch
+    from optax.transforms import MaskedNode
+
+    from densecap_tpu_torch.parallel.train_step import Trainer, param_zones
+    from densecap_tpu_torch.utils.checkpoint import to_torch
 
     def as_model(tree):
         return dict(to_torch(tree, cfg, "cpu", train=True).named_parameters())
 
     model = to_torch(params, cfg, "cpu", train=True)
-    trainer = Trainer(model)
+    trainer = Trainer(model, learning_rate=learning_rate)
     zones = param_zones(model)
-    partition, schedule = state.opt_state
+    partition, schedule = opt_state
     for zone in ("main", "cnn"):
         adam = partition.inner_states[zone].inner_state
         count = int(adam.count)
@@ -108,9 +122,9 @@ def convert(args):
                     "step": torch.tensor(float(count)),
                     "exp_avg": mu[name].detach().clone(),
                     "exp_avg_sq": nu[name].detach().clone()}
-    trainer.count = int(getattr(schedule, "count", state.step))
-    trainer.set_finetune(bool(state.finetune_cnn))
-    return trainer, int(state.step), meta
+    trainer.count = int(getattr(schedule, "count", step))
+    trainer.set_finetune(finetune_cnn)
+    return trainer
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """The port never imports JAX, optax, orbax or the JAX package: the machine
 with the card has none of them. Checked in a fresh interpreter, so this
-test process's own imports do not count. Also the help epilog that names
+test process's own imports do not count; the port's scripts too. Also the help epilog that names
 the JAX CLIs' flags the port leaves out (and no longer --data_parallel or
 --model_parallel, which it has)."""
 
@@ -38,12 +38,17 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.cli.convert_t7",
            "densecap_tpu_torch.data.preprocess",
            "chip_smoke"]
+# the port's scripts, imported from scripts/ as they import each other
+SCRIPTS = ["torch_synth_scenes", "torch_overfit_sanity",
+           "torch_generalize_check", "torch_trained_weights_bench"]
 
 
-@pytest.mark.parametrize("module", MODULES)
+@pytest.mark.parametrize("module", MODULES + [f"scripts/{m}" for m in SCRIPTS])
 def test_port_imports_no_jax(module):
+    folder, _, module = module.rpartition("/")
     code = (
         "import importlib, sys\n"
+        f"sys.path.insert(0, {folder!r})\n"
         f"importlib.import_module({module!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'densecap_tpu'))\n"

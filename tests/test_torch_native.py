@@ -11,14 +11,21 @@ twin of `tests/test_native.py`'s subject) and its three callers.
     `run_model --native_io 1`; `--native_io 1` with the library missing
     takes the PIL path and gives the same results;
   * the evaluator's mAP with libdcgeom and with its numpy path;
-  * a failing `make` leaves the library unavailable, with its error.
+  * a failing `make` leaves the library unavailable, with its error;
+  * four processes loading from one empty build directory at once all
+    load (one builds, under the lock; none opens a half-written file);
+  * a library of another ABI version in the build directory is left
+    alone: the expected version builds beside it and loads.
 
-Every test that needs a library skips when `make -C native` cannot build
-it here.
+Every test that needs a library skips when `native/Makefile` cannot
+build it here.
 """
 
 import io
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -209,9 +216,59 @@ def test_failed_build_is_reported(tmp_path, monkeypatch):
     (tmp_path / "Makefile").write_text(
         "libdcgeom.so:\n\t@echo no compiler here >&2; exit 3\n")
     monkeypatch.setattr(native_lib, "NATIVE_DIR", str(tmp_path))
+    monkeypatch.setattr(native_lib, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(native_lib, "_libs", {})
     monkeypatch.setattr(native_lib, "build_error", {})
     assert not native_lib.is_available("dcgeom")
     assert "no compiler here" in native_lib.build_error["dcgeom"]
     with pytest.raises(RuntimeError, match="unavailable"):
         native_lib.merge_boxes(np.zeros((2, 4)), 0.7)
+
+
+LOAD_IN = """
+import sys
+from densecap_tpu_torch import native_lib
+native_lib.BUILD_DIR = sys.argv[1]
+ok = native_lib.is_available("dcgeom")
+groups = native_lib.merge_boxes([[0, 0, 9, 9], [0, 0, 9, 10]], 0.7) if ok else []
+print(ok, len(groups), native_lib.build_error.get("dcgeom"))
+"""
+
+
+def test_concurrent_loads_build_once(tmp_path):
+    _need("dcgeom")
+    build_dir = tmp_path / "build"
+    procs = [subprocess.Popen([sys.executable, "-c", LOAD_IN, str(build_dir)],
+                              cwd=native_lib.ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert out.split() == ["True", "1", "None"], out
+    # published and cleaned: the library and its lock, no work directory
+    assert sorted(os.listdir(build_dir)) == ["libdcgeom.lock",
+                                             "libdcgeom_abi1.so"]
+
+
+def test_stale_abi_is_rebuilt(tmp_path, monkeypatch):
+    _need("dcgeom")
+    build_dir = tmp_path / "build"
+    build_dir.mkdir()
+    src = tmp_path / "stale.cpp"
+    src.write_text('extern "C" int dcgeom_abi_version() { return 0; }\n')
+    # a library of ABI version 0 under its versioned name and under the
+    # plain one
+    stale = ["libdcgeom_abi0.so", "libdcgeom.so"]
+    for name in stale:
+        subprocess.run(["g++", "-shared", "-fPIC", "-o",
+                        str(build_dir / name), str(src)], check=True)
+    monkeypatch.setattr(native_lib, "BUILD_DIR", str(build_dir))
+    monkeypatch.setattr(native_lib, "_libs", {})
+    monkeypatch.setattr(native_lib, "build_error", {})
+    assert native_lib.is_available("dcgeom"), native_lib.build_error
+    assert native_lib._libs["dcgeom"].dcgeom_abi_version() == 1
+    groups = native_lib.merge_boxes([[0, 0, 9, 9], [0, 0, 9, 10]], 0.7)
+    assert [g.tolist() for g in groups] == [[0, 1]]
+    assert sorted(os.listdir(build_dir)) == sorted(
+        stale + ["libdcgeom.lock", "libdcgeom_abi1.so"])
