@@ -4,8 +4,10 @@ parallel ranks, tensor-parallel ranks, a profiler trace), evaluation,
 offline inference, int8
 serving, the directory daemon, the native host I/O, data-parallel
 evaluation and serving over model replicas, the reference's t7
-checkpoint path, and a short learning check (a small model trained from
-scratch must detect its scenes).
+checkpoint path, a short learning check (a small model trained from
+scratch must detect its scenes), and the h5 entry points (preprocess, the
+train CLI, evaluate_model, run_model --input_split, extract_features) on
+the port's own HDF5 codec.
 
     python3 chip_smoke.py [--before DIR]
 
@@ -157,8 +159,27 @@ its result on its own line; any failure raises and exits non-zero:
      plain entry (these shapes join the kernels line as "learn_shapes").
      It fails if one disagrees, or unless detmap > 0.15, the JAX
      script's gate.
+ 19. [h5] (last) the h5 entry points, with `--device cuda`, on a
+     synthetic VG of 40 images (scripts/torch_make_synth_vg.py: VG-like
+     800x600 / 600x800 / 768x768 sources, 32-48 regions each, split
+     32 / 4 / 4) that the port's preprocess writes through its codec at
+     720 px under build/h5_smoke (removed after): the h5 read rate
+     (get_example_at alone and through PrefetchingLoader, canvases/s);
+     cli.train for H5_STEPS steps at B = 8 and full width (VGG-16, fc
+     4096, LSTM 512, 1000 test proposals, bf16; the data's vocabulary),
+     ms/step between step entries, ending in its val eval and
+     checkpoint; cli.evaluate_model on the test split from that
+     checkpoint; cli.run_model --input_split test; cli.extract_features
+     on the test images, its h5 read back by the codec and held to
+     DenseCap.extract_features on the same canvases (valid and paths
+     identical, boxes and codes within H5_TOL relative plus 1e-5 of the
+     largest). The train CLI's steps must launch K2 and K2b's positions
+     instance (never its d feats one: the trunk stays frozen), its val
+     eval and the three other CLIs K1 and K2. The last K1 / K2 inputs at
+     each shape of these runs are held to plain afterwards as in 18
+     (K2b's positions instance on the train step's; "h5_shapes").
 
-Phases 7 (and its thin-frame part), 9-11 and 13-18 each drive their path
+Phases 7 (and its thin-frame part), 9-11 and 13-19 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
 K2 must launch on each (in 16, with one replica and with two), and in 18
 also K2b's d feats instance. So do [train], [train buckets] and [tensor
@@ -182,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import io
 import json
 import re
@@ -1839,23 +1861,26 @@ LEARN_STEPS = 600  # [learn]: from the learning curves in PERF.md section 6
 def capturing(fn, store):
     """fn (nms_cuda or roi_align_cuda) keeping, at each shape and setting
     it is called with, the inputs of its last call (detached), in
-    `store`."""
+    `store`, with the gradient the call takes: "feats" when its first
+    input requires one (K2b with d feats), "boxes" when only its second
+    does (K2b's positions instance, the trunk frozen), else None."""
     def sig(v):
         return tuple(v.shape) if isinstance(v, torch.Tensor) else v
 
     def wrapper(*args, **kw):
-        t = args[0]
+        grad = ("feats" if args[0].requires_grad else "boxes"
+                if args[1].requires_grad else None)
         key = (*map(sig, args), *((k, sig(v)) for k, v in sorted(kw.items())),
-               t.requires_grad)
+               grad)
         store[key] = ([a.detach() if isinstance(a, torch.Tensor) else a
                        for a in args],
                       {k: v.detach() if isinstance(v, torch.Tensor) else v
-                       for k, v in kw.items()}, t.requires_grad)
+                       for k, v in kw.items()}, grad)
         return fn(*args, **kw)
     return wrapper
 
 
-def learn_nms_check(args, kw):
+def learn_nms_check(args, kw, tag="learn"):
     """K1 against nms_plain on one captured call -> its record."""
     boxes, scores, thr, k = args
     with torch.no_grad():
@@ -1864,21 +1889,22 @@ def learn_nms_check(args, kw):
     same = all(torch.equal(g, r) for g, r in zip(got, ref))
     shape = (f"B={boxes.shape[0]} {boxes.shape[1]}->{k} @{thr}"
              + (" presorted" if kw.get("presorted") else ""))
-    print(f"[learn] K1 at the path's shape {shape}: identical={same} "
+    print(f"[{tag}] K1 at the path's shape {shape}: identical={same} "
           f"kept/img={ref[1].sum(1).tolist()}")
     return {"shape": shape, "identical": same, "max_abs_err": float(
         (got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0}
 
 
-def learn_roi_check(args, grad, seed):
-    """K2 (and with `grad` K2b's d feats instance) against the plain
-    version and its autograd on one captured call -> its record. Errors
-    relative to the largest plain entry: the trained map's scale is not
-    phase_roi's unit normal."""
+def learn_roi_check(args, grad, seed, tag="learn"):
+    """K2 (and K2b: with `grad` "feats" its d feats instance, with
+    "boxes" its positions instance) against the plain version and its
+    autograd on one captured call -> its record. Errors relative to the
+    largest plain entry: the trained map's scale is not phase_roi's unit
+    normal."""
     feats, boxes = args[0].clone(), args[1].clone()
     rest = args[2:]
     shape = (f"{boxes.shape[0]}x{boxes.shape[1]} boxes on "
-             f"{tuple(feats.shape)} f32")
+             f"{tuple(feats.shape)} {str(feats.dtype).removeprefix('torch.')}")
     rec = {"shape": shape}
     with torch.no_grad():
         got = roi_mod.roi_align_cuda(feats, boxes, *rest)
@@ -1888,27 +1914,30 @@ def learn_roi_check(args, grad, seed):
     ok = rec["rel_err"] <= ROI_TOL
     if grad:
         gen = torch.Generator(device=feats.device).manual_seed(seed)
-        gout = torch.randn(ref.shape, generator=gen, device=feats.device)
+        gout = torch.randn(ref.shape, generator=gen, device=feats.device,
+                           dtype=ref.dtype)
         grads = []
         for fn in (roi_mod.roi_align_cuda, roi_mod.roi_align_plain):
-            f = feats.clone().requires_grad_()
+            f = feats.clone().requires_grad_(grad == "feats")
             b = boxes.clone().requires_grad_()
-            grads.append(torch.autograd.grad(fn(f, b, *rest), [f, b], gout))
-        for name, g, r, tol in (("d_feats", grads[0][0], grads[1][0],
-                                 BWD_FEATS_TOL),
-                                ("d_boxes", grads[0][1], grads[1][1],
-                                 BWD_BOXES_TOL)):
+            grads.append(torch.autograd.grad(
+                fn(f, b, *rest), [f, b] if grad == "feats" else [b], gout))
+        named = [("d_feats", BWD_FEATS_TOL)] * (grad == "feats") + [
+            ("d_boxes", BWD_BOXES_TOL)]
+        for (name, tol), g, r in zip(named, grads[0], grads[1]):
             rec[name + "_rel_err"] = float((g - r).abs().max()
                                            / r.abs().max())
             ok &= rec[name + "_rel_err"] <= tol
         rec["max_abs_err"] = max(rec["max_abs_err"], *(
             float((g - r).abs().max()) for g, r in zip(*grads)))
-    print(f"[learn] K2{' + K2b (d feats)' if grad else ''} at the path's "
+    k2b = {"feats": " + K2b (d feats)", "boxes": " + K2b (positions)"}
+    print(f"[{tag}] K2{k2b.get(grad, '')} at the path's "
           f"shape {shape}: " + ", ".join(
               f"{k} {v:.3e}" for k, v in rec.items() if k.endswith("err"))
           + f" (tol {ROI_TOL}"
-          + (f", d feats {BWD_FEATS_TOL}, d boxes {BWD_BOXES_TOL}" if grad
-             else "") + ", of the largest plain entry)")
+          + (f", d feats {BWD_FEATS_TOL}" if grad == "feats" else "")
+          + (f", d boxes {BWD_BOXES_TOL}" if grad else "")
+          + ", of the largest plain entry)")
     rec["ok"] = ok
     return rec
 
@@ -2016,8 +2045,9 @@ def phase_http(engine, frames):
 
 class MemoryLoader:
     """The split API of the port's DenseCapLoader over examples held in
-    memory (the card machine has no h5py), with the metadata protocol
-    that BucketedLoader schedules from. Every split is the one list."""
+    memory (frames from a seed, for the phases before [h5]), with the
+    metadata protocol that BucketedLoader schedules from. Every split is
+    the one list."""
 
     def __init__(self, examples, vocab):
         self.examples = examples
@@ -2990,6 +3020,292 @@ def phase_native():
     return status
 
 
+# [h5]: the train CLI's iterations (the phase asks for 8-12), and the
+# synthetic VG's sources (portrait, landscape, square): 40 images, split
+# 32 / 4 / 4 by the generator's 10% val and test
+H5_STEPS = 12
+H5_SOURCES = (30, 8, 2)
+H5_TOL = 1e-4  # extract_features' h5 against the direct call (relative)
+
+
+def h5_read_rate(h5_path, json_path, batches=12):
+    """Canvases/s of DenseCapLoader.get_example_at over the train split,
+    alone and through PrefetchingLoader at batch B as the train CLI
+    drains it (the file was just written: the reads hit the page
+    cache). A smoke reading of a few dozen ms; the feed's sustained rate
+    is scripts/torch_sustained_train_h5.py --mode loader's."""
+    from densecap_tpu_torch.data.loader import (DenseCapLoader,
+                                                PrefetchingLoader)
+
+    loader = DenseCapLoader(h5_path, json_path)
+    try:
+        n = loader.split_size(0)
+        t0 = time.perf_counter()
+        for i in range(B * batches):
+            loader.get_example_at(0, i % n)
+        alone = B * batches / (time.perf_counter() - t0)
+        pf = PrefetchingLoader(loader, B, split=0)
+        try:
+            pf.next()
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                pf.next()
+            prefetched = B * batches / (time.perf_counter() - t0)
+        finally:
+            pf.close()
+    finally:
+        loader.close()
+    return {"canvas": loader.canvas, "canvas_mb": 3 * loader.canvas ** 2
+            / 1e6, "reads": B * batches, "distinct": n,
+            "alone_canvases_per_s": alone,
+            "prefetching_canvases_per_s": prefetched}
+
+
+def h5_train(dev, h5_path, json_path, prefix):
+    """cli.train on the h5 for H5_STEPS iterations at B = 8, full width,
+    ending in its val evaluation and checkpoint. -> (launches of the
+    steps, launches of the val eval, record). ms/step is the host clock
+    between the entries of steps 4-12 (the CLI's loop as it runs: the
+    next batch's copy and the losses read 3 steps late included)."""
+    from densecap_tpu_torch.cli import train as train_cli
+
+    entries, eval_counts = [], {}
+    real_trainer, real_eval = train_cli.Trainer, train_cli.eval_split
+
+    class TimedTrainer(real_trainer):
+        def step(self, *args, **kw):
+            entries.append(time.perf_counter())
+            return super().step(*args, **kw)
+
+    def counted_eval(*args, **kw):
+        torch.cuda.synchronize()
+        before = dict(build.launches)
+        out = real_eval(*args, **kw)
+        torch.cuda.synchronize()
+        eval_counts.update({k: v - before[k]
+                            for k, v in build.launches.items()})
+        return out
+
+    train_cli.Trainer, train_cli.eval_split = TimedTrainer, counted_eval
+    try:
+        t0 = time.perf_counter()
+        _, counts = read_launches(lambda: train_cli.main([
+            "--data_h5", str(h5_path), "--data_json", str(json_path),
+            "--device", dev.type, "--batch_size", str(B),
+            "--max_iters", str(H5_STEPS), "--save_checkpoint_every", "1000",
+            "--losses_log_every", "4", "--val_images_use", "-1",
+            "--checkpoint_path", str(prefix)]))
+        wall = time.perf_counter() - t0
+    finally:
+        train_cli.Trainer, train_cli.eval_split = real_trainer, real_eval
+    steps = {k: v - eval_counts.get(k, 0) for k, v in counts.items()}
+    with open(f"{prefix}.json") as f:
+        hist = json.load(f)
+    gaps = np.diff(entries[3:]) * 1e3
+    with open(json_path) as f:
+        vocab = len(json.load(f)["token_to_idx"])
+    losses = [v["total_loss"] for v in hist["loss_history"].values()]
+    rec = {"steps": len(entries), "batch": B,
+           "ms_per_step": float(np.median(gaps)),
+           "ms_per_step_mean": float(gaps.mean()),
+           "step_intervals_ms": gaps.tolist(),
+           "images_per_s": B / float(np.median(gaps)) * 1e3, "wall_s": wall,
+           "total_loss": losses,
+           "val": hist["results_history"][str(H5_STEPS)]}
+    print(f"[h5] train CLI: {len(entries)} steps at B={B} on the h5, full "
+          f"width (bf16, 1000 test proposals, the data's vocab of {vocab}):"
+          f" {rec['ms_per_step']:.2f} ms/step median "
+          f"({rec['ms_per_step_mean']:.2f} mean) between step entries 4-"
+          f"{len(entries)} (host clock) = {rec['images_per_s']:.1f} "
+          f"images/s; {wall:.1f} s with set-up, val eval and checkpoint; "
+          f"total_loss {losses}; val {rec['val']}; launches: steps {steps}, "
+          f"val eval {eval_counts}")
+    need_launches(steps, ("roi_align", "roi_align_bwd"), "h5 train CLI")
+    need_launches(eval_counts, ("nms", "roi_align"), "h5 train CLI's val")
+    if steps["roi_align_bwd_feats"] or not Path(f"{prefix}.npz").exists():
+        raise AssertionError("the h5 train CLI ran K2b with d feats with the "
+                             "trunk frozen, or wrote no checkpoint")
+    if not (len(entries) == H5_STEPS and np.isfinite(losses).all()
+            and np.isfinite(rec["val"]["map"])):
+        raise AssertionError(f"the h5 train CLI's run is wrong: {rec}")
+    return steps, eval_counts, rec
+
+
+def h5_extract(dev, ck, paths, out):
+    """cli.extract_features on `paths` into `out` (the codec's writer),
+    read back with the codec's reader and held to DenseCap.extract_features
+    on the same canvases: valid and paths identical, boxes and codes
+    within H5_TOL relative plus 1e-5 of their largest magnitude.
+    -> (launches of the CLI, record)."""
+    from densecap_tpu_torch.cli import extract_features
+    from densecap_tpu_torch.utils import h5
+    from densecap_tpu_torch.utils.checkpoint import load_checkpoint
+    from densecap_tpu_torch.utils.image import (load_image,
+                                                preprocess_for_model_uint8,
+                                                to_model_input)
+
+    txt = out.with_suffix(".txt")
+    txt.write_text("\n".join(paths) + "\n")
+    t0 = time.perf_counter()
+    _, counts = read_launches(lambda: extract_features.main([
+        "--checkpoint", str(ck), "--input_txt", str(txt), "--output_h5",
+        str(out), "--image_size", str(FLAGSHIP.image_size), "--device",
+        dev.type]))
+    wall = time.perf_counter() - t0
+    with h5.File(out) as f:
+        got = {k: f[k][()] for k in ("boxes", "feats", "valid", "paths")}
+    params, _, cfg = load_checkpoint(ck)
+    model = to_torch(params, cfg.replace(image_size=FLAGSHIP.image_size), dev)
+    ref = {"boxes": [], "feats": [], "valid": []}
+    for path in paths:
+        canvas, hh, ww, scale = preprocess_for_model_uint8(
+            load_image(path), FLAGSHIP.image_size)
+        boxes, feats, valid = model.extract_features(
+            *to_model_input([canvas], [hh], [ww], dev))
+        boxes = boxes[0].cpu().numpy()
+        boxes[:, :2] = (boxes[:, :2] - 1) / scale + 1
+        boxes[:, 2:] = boxes[:, 2:] / scale
+        for k, v in (("boxes", boxes), ("feats", feats[0].cpu().numpy()),
+                     ("valid", valid[0].cpu().numpy())):
+            ref[k].append(v)
+    ref = {k: np.stack(v) for k, v in ref.items()}
+    err = {k: float(np.abs(got[k] - ref[k]).max()) for k in ("boxes",
+                                                              "feats")}
+    ok = (got["feats"].shape == (len(paths), 100, cfg.fc_dim)
+          and [p.decode() for p in got["paths"]] == paths
+          and np.array_equal(got["valid"], ref["valid"])
+          and all(np.allclose(got[k], ref[k], rtol=H5_TOL,
+                              atol=1e-5 * float(np.abs(ref[k]).max()))
+                  for k in ("boxes", "feats")))
+    print(f"[h5] extract_features CLI: {len(paths)} images in {wall:.1f} s "
+          f"(with the checkpoint's load), h5 written and read back by the "
+          f"codec; against DenseCap.extract_features on the same canvases: "
+          f"valid and paths identical, max abs err {err} (rtol {H5_TOL}, "
+          f"atol 1e-5 of the largest) ok={ok}; valid per image "
+          f"{got['valid'].sum(1).tolist()}; launches {counts}")
+    need_launches(counts, ("nms", "roi_align"), "extract_features CLI")
+    if not ok:
+        raise AssertionError("extract_features' h5 disagrees with the "
+                             "direct call")
+    return counts, {"wall_s": wall, "max_abs_err": err,
+                    "valid": got["valid"].sum(1).tolist()}
+
+
+def phase_h5(dev):
+    """The h5 entry points on the card, on a synthetic VG written by
+    scripts/torch_make_synth_vg.py (40 images, the flagship's 720 px
+    canvas, under build/h5_smoke, removed after): the read rate, then
+    cli.train (H5_STEPS steps, B = 8, full width, the vocabulary of the
+    data), cli.evaluate_model on the test split from its checkpoint,
+    cli.run_model --input_split test and cli.extract_features on the test
+    images, each with every launch count set to 0 first. The last K1 and
+    K2 inputs at each shape of these runs are kept and each kernel is
+    held to its plain version on them afterwards, as in [learn] (K2b's
+    positions instance on the train step's). -> ({path: launches},
+    summary, {kernel: its checks' records})."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_make_synth_vg as synth
+    from densecap_tpu_torch.cli import evaluate_model, run_model
+
+    work = ROOT / "build" / "h5_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    calls = {"nms": {}, "roi_align": {}}
+    plain = nms_mod.nms_cuda, roi_mod.roi_align_cuda
+    nms_mod.nms_cuda = capturing(plain[0], calls["nms"])
+    roi_mod.roi_align_cuda = capturing(plain[1], calls["roi_align"])
+    try:
+        t0 = time.perf_counter()
+        h5_path, json_path, splits = synth.make_synth_vg(
+            str(work), *H5_SOURCES, image_size=FLAGSHIP.image_size,
+            num_workers=4)
+        data_s = time.perf_counter() - t0
+        mb = Path(h5_path).stat().st_size / 1e6
+        print(f"[h5] synthetic VG: {sum(H5_SOURCES)} images (train "
+              f"{len(splits['train'])}, val {len(splits['val'])}, test "
+              f"{len(splits['test'])}) through the port's preprocess to "
+              f"{mb:.1f} MB of h5 at {FLAGSHIP.image_size} px in {data_s:.1f}"
+              f" s")
+        rate = h5_read_rate(h5_path, json_path)
+        print(f"[h5] smoke read rate at {rate['canvas']} px "
+              f"({rate['canvas_mb']:.2f} MB a canvas, page cache): "
+              f"get_example_at "
+              f"{rate['alone_canvases_per_s']:.1f} canvases/s alone, "
+              f"{rate['prefetching_canvases_per_s']:.1f} through "
+              f"PrefetchingLoader at batch {B} (host clock, "
+              f"{rate['reads']} reads of {rate['distinct']} canvases "
+              "each)")
+        prefix = work / "ck" / "densecap"
+        counts = {}
+        counts["h5 train"], counts["h5 train val eval"], train = h5_train(
+            dev, h5_path, json_path, prefix)
+        ck = f"{prefix}.npz"
+        data = ["--data_h5", h5_path, "--data_json", json_path]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _, counts["evaluate_model"] = read_launches(
+                lambda: evaluate_model.main(["--checkpoint", ck, "--split",
+                                             "test", "--device", dev.type]
+                                            + data))
+        ev = json.loads(buf.getvalue().strip().splitlines()[-1])
+        ev_s = time.perf_counter() - t0
+        print(f"[h5] evaluate_model CLI on the test split: {ev} in "
+              f"{ev_s:.1f} s; launches {counts['evaluate_model']}")
+        need_launches(counts["evaluate_model"], ("nms", "roi_align"),
+                      "evaluate_model")
+        if not all(np.isfinite(ev[k]) for k in ("map", "detmap", "loss")):
+            raise AssertionError(f"evaluate_model: a non-finite result {ev}")
+        t0 = time.perf_counter()
+        _, counts["run_model --input_split"] = read_launches(
+            lambda: run_model.main(["--checkpoint", ck, "--input_split",
+                                    "test", "--output_dir",
+                                    str(work / "vis"), "--device", dev.type]
+                                   + data))
+        rm_s = time.perf_counter() - t0
+        with open(work / "vis" / "results.json") as f:
+            results = json.load(f)["results"]
+        ok = len(results) == len(splits["test"]) and all(
+            r["captions"] and all(isinstance(c, str) for c in r["captions"])
+            and np.isfinite(r["boxes"]).all() for r in results)
+        print(f"[h5] run_model --input_split test: {len(results)} images in "
+              f"{rm_s:.1f} s, boxes per image "
+              f"{[len(r['boxes']) for r in results]}, finite boxes and "
+              f"string captions={ok}; launches "
+              f"{counts['run_model --input_split']}")
+        need_launches(counts["run_model --input_split"], ("nms", "roi_align"),
+                      "run_model --input_split")
+        if not ok:
+            raise AssertionError("run_model --input_split's results are wrong")
+        test_paths = [str(work / "images" / f"{i}.jpg")
+                      for i in splits["test"]]
+        counts["extract_features CLI"], extract = h5_extract(
+            dev, ck, test_paths, work / "feats.h5")
+    finally:
+        nms_mod.nms_cuda, roi_mod.roi_align_cuda = plain
+    checks = {"nms": [learn_nms_check(a, kw, tag="h5")
+                      for a, kw, _ in calls["nms"].values()],
+              "roi_align": [], "roi_align_bwd": []}
+    for i, (a, _, grad) in enumerate(calls["roi_align"].values()):
+        checks["roi_align_bwd" if grad else "roi_align"].append(
+            learn_roi_check(a, grad, seed=50 + i, tag="h5"))
+    if not (all(c["identical"] for c in checks["nms"])
+            and all(c["ok"] for c in checks["roi_align"]
+                    + checks["roi_align_bwd"])
+            and checks["nms"] and checks["roi_align"]
+            and checks["roi_align_bwd"]):
+        raise AssertionError(f"[h5] a kernel disagrees with its plain "
+                             f"version at the path's shapes: {checks}")
+    shutil.rmtree(work, ignore_errors=True)
+    summary = {"h5_mb": mb, "data_s": data_s, "read_rate": rate,
+               "train": train, "evaluate_model": {**ev, "wall_s": ev_s},
+               "run_model_wall_s": rm_s, "extract_features": extract,
+               "phase_s": time.perf_counter() - t_phase}
+    return counts, summary, checks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", default=None,
@@ -3063,6 +3379,14 @@ def main(argv=None):
      decode_s) = phase_run_model(dev, params, vocab, native)
     del params
     paths["t7 engine"], t7_secs = phase_t7(dev)
+    torch.cuda.empty_cache()
+    h5_counts, h5, h5_checks = phase_h5(dev)
+    paths.update(h5_counts)
+    for k, shapes in ((k1, h5_checks["nms"]), (k2, h5_checks["roi_align"]),
+                      (k2b, h5_checks["roi_align_bwd"])):
+        k["h5_shapes"] = shapes
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               *(c["max_abs_err"] for c in shapes))
     print(f"[train buckets] summary {json.dumps(buckets)}")
     print(f"[profile] summary {json.dumps(profile)}")
     print(f"[tensor parallel] summary {json.dumps(tp)}")
@@ -3072,11 +3396,13 @@ def main(argv=None):
     print(f"[data parallel] summary {json.dumps(data_parallel)}")
     print(f"[t7] summary {json.dumps({'host_s': t7_secs})}")
     print(f"[learn] summary {json.dumps(learn)}")
+    print(f"[h5] summary {json.dumps(h5)}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
     paths["tensor parallel"] = tp_counts
     paths["learn"] = learn_counts
-    train_paths = ("train", "train buckets", "tensor parallel", "learn")
+    train_paths = ("train", "train buckets", "tensor parallel", "learn",
+                   "h5 train")
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",

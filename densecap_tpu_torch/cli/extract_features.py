@@ -5,9 +5,10 @@ after the reference's extract_features.lua).
         --input_dir imgs/ --output_h5 feats.h5 --device cuda
 
 For each image, the top --boxes_per_image regions after a final NMS at
---final_nms_thresh, written to HDF5: `boxes` (N, 100, 4) original-image
+--final_nms_thresh, written to HDF5 by the port's codec (`utils/h5.py`),
+one image's rows at a time: `boxes` (N, 100, 4) original-image
 (xc, yc, w, h), `feats` (N, 100, fc_dim) region codes, `valid` (N, 100)
-and `paths` (N,).
+and `paths` (N,), variable-length UTF-8 strings.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 
 import numpy as np
 
+from ..utils import h5
 from ..utils.checkpoint import load_checkpoint, to_torch
 from ..utils.image import (load_image, parse_buckets, pick_bucket,
                            preprocess_for_model_uint8, to_model_input)
@@ -60,8 +62,6 @@ def main(argv=None):
     if args.max_images > 0:
         paths = paths[:args.max_images]
 
-    import h5py
-
     params, _, cfg = load_checkpoint(args.checkpoint)
     params = maybe_quantize(params, args.quantize)
     cfg = cfg.replace(image_size=args.image_size)
@@ -69,11 +69,11 @@ def main(argv=None):
     buckets = (parse_buckets(args.canvas_buckets, args.image_size)
                if args.canvas_buckets else None)
     N, K = len(paths), args.boxes_per_image
-    with h5py.File(args.output_h5, "w") as h5:
-        d_boxes = h5.create_dataset("boxes", (N, K, 4), dtype=np.float32)
-        d_feats = h5.create_dataset("feats", (N, K, cfg.fc_dim),
-                                    dtype=np.float32)
-        d_valid = h5.create_dataset("valid", (N, K), dtype=bool)
+    with h5.File(args.output_h5, "w") as f:
+        d_boxes = f.create_dataset("boxes", (N, K, 4), dtype=np.float32)
+        d_feats = f.create_dataset("feats", (N, K, cfg.fc_dim),
+                                   dtype=np.float32)
+        d_valid = f.create_dataset("valid", (N, K), dtype=bool)
         for i, path in enumerate(paths):
             canvas, h, w, scale = preprocess_for_model_uint8(
                 load_image(path), args.image_size)
@@ -91,8 +91,8 @@ def main(argv=None):
             d_feats[i] = feats[0].cpu().numpy()
             d_valid[i] = valid[0].cpu().numpy()
             print(f"{i + 1}/{N}: {path}")
-        h5.create_dataset("paths", data=np.asarray(
-            paths, dtype=h5py.string_dtype()))
+        f.create_dataset("paths", data=np.asarray(
+            paths, dtype=h5.string_dtype()))
     print(f"wrote {args.output_h5}")
 
 

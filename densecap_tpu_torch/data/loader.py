@@ -8,8 +8,9 @@ and the CLIs use, its round-robin `shard`, `BucketedLoader` and
 (S, S, 3), or cropped to a bucket; the model's caller normalizes them on
 the device (`utils/image.py:normalize_uint8_images`).
 Ground truth is padded to `max_gt_boxes` rows with a validity mask (and
-uniformly subsampled when an image has more). `h5py` is imported when a
-loader is made, not with this module. The JAX loader's external region
+uniformly subsampled when an image has more). The h5 is read with the
+port's own codec (`utils/h5.py`): the index arrays once, each canvas by
+index when its example is read. The JAX loader's external region
 proposals (`proposals_h5`) are not ported: the model never reads them.
 """
 
@@ -20,6 +21,8 @@ import queue
 import threading
 
 import numpy as np
+
+from ..utils import h5
 
 BATCH_KEYS = ("image", "height", "width", "gt_boxes", "gt_labels", "gt_valid")
 
@@ -34,9 +37,7 @@ class DenseCapLoader:
 
     def __init__(self, h5_path, json_path, max_gt_boxes=128, seed=0,
                  shard=None):
-        import h5py
-
-        self.h5 = h5py.File(h5_path, "r")
+        self.h5 = h5.File(h5_path)
         with open(json_path) as f:
             self.info = json.load(f)
         self.max_gt_boxes = max_gt_boxes
@@ -58,7 +59,8 @@ class DenseCapLoader:
             self.split_ix = {s: ix[pid::nproc]
                              for s, ix in self.split_ix.items()}
         self.iterators = {0: 0, 1: 0, 2: 0}
-        self.canvas = self.h5["images"].shape[2]
+        self.images = self.h5["images"]
+        self.canvas = self.images.shape[2]
 
     def vocab_size(self):
         return len(self.info["token_to_idx"])
@@ -101,7 +103,7 @@ class DenseCapLoader:
         size)."""
         ix_list = self.split_ix[split]
         ix = int(ix_list[ri])
-        image = self.h5["images"][ix].transpose(1, 2, 0)  # (S, S, 3) uint8
+        image = self.images[ix].transpose(1, 2, 0)  # (S, S, 3) uint8
         r0 = int(self.img_to_first_box[ix]) - 1  # 1-indexed inclusive
         r1 = int(self.img_to_last_box[ix])
         boxes, labels = self.boxes[r0:r1], self.labels[r0:r1]
@@ -308,6 +310,6 @@ class PrefetchingLoader:
                 self.q.get_nowait()
         except queue.Empty:
             pass
-        # join: a daemon thread mid-read at interpreter exit can deadlock
-        # against h5py's own close
+        # join: the thread may be mid-read, and its loader's file must
+        # stay open until it is done
         self.thread.join(timeout=10.0)

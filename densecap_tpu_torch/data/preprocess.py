@@ -21,9 +21,10 @@ the JAX package's loader) read:
         box_to_img (M,) int32
         split (N,) int32 (0 train, 1 val, 2 test)
 
-Host-side only (the card's machine has no h5py): a pool of worker
-processes decodes and resizes the images, and this process alone writes
-the h5 (h5py has no concurrent writes; decoding is the expensive part).
+Host-side only: a pool of worker processes decodes and resizes the
+images, and this process alone writes the h5 with the port's codec
+(`utils/h5.py`), one canvas at a time into the `images` region allocated
+up front (decoding is the expensive part).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from math import floor
 import multiprocessing
 
 import numpy as np
+
+from ..utils import h5
 
 _REPLACEMENTS = {
     "½": "half", "—": "-", "™": "", "¢": "cent",
@@ -214,7 +217,9 @@ def add_images(data, h5_file, image_dir, image_size, num_workers=8):
             original_widths[i] = W0
             image_heights[i] = H
             image_widths[i] = W
-            image_dset[i, :, :H, :W] = chw
+            canvas = np.zeros(shape[1:], np.uint8)
+            canvas[:, :H, :W] = chw
+            image_dset[i] = canvas
             if i % 1000 == 0:
                 print(f"writing image {i}/{n}")
 
@@ -252,8 +257,6 @@ def main(argv=None):
     p.add_argument("--num_workers", type=int, default=8)
     args = p.parse_args(argv)
 
-    import h5py
-
     with open(args.region_data) as f:
         data = json.load(f)
     split_data = None
@@ -271,24 +274,24 @@ def main(argv=None):
 
     filename_to_idx, idx_to_filename = build_filename_dict(data)
 
-    with h5py.File(args.h5_output, "w") as h5:
-        oh, ow = add_images(data, h5, args.image_dir, args.image_size,
+    with h5.File(args.h5_output, "w") as f:
+        oh, ow = add_images(data, f, args.image_dir, args.image_size,
                             args.num_workers)
         boxes = encode_boxes(data, oh, ow, args.image_size)
-        h5.create_dataset("boxes", data=boxes)
+        f.create_dataset("boxes", data=boxes)
         captions, lengths = encode_captions(
             data, token_to_idx, args.max_token_length
         )
-        h5.create_dataset("labels", data=captions)
-        h5.create_dataset("lengths", data=lengths)
+        f.create_dataset("labels", data=captions)
+        f.create_dataset("lengths", data=lengths)
         first, last = build_img_idx_to_box_idxs(data)
-        h5.create_dataset("img_to_first_box", data=first)
-        h5.create_dataset("img_to_last_box", data=last)
+        f.create_dataset("img_to_first_box", data=first)
+        f.create_dataset("img_to_last_box", data=last)
         box_to_img = np.zeros(len(boxes), dtype=np.int32)
         for i in range(len(data)):
             box_to_img[first[i] - 1: last[i]] = i + 1
-        h5.create_dataset("box_to_img", data=box_to_img)
-        h5.create_dataset("split", data=encode_splits(data, split_data))
+        f.create_dataset("box_to_img", data=box_to_img)
+        f.create_dataset("split", data=encode_splits(data, split_data))
 
     info = {
         "token_to_idx": token_to_idx,

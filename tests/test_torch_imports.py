@@ -1,5 +1,5 @@
-"""The port never imports JAX, optax, orbax or the JAX package: the machine
-with the card has none of them. Checked in a fresh interpreter, so this
+"""The port never imports JAX, optax, orbax, h5py or the JAX package: the
+machine with the card has none of them. Checked in a fresh interpreter, so this
 test process's own imports do not count; the port's scripts too. Also the help epilog that names
 the JAX CLIs' flags the port leaves out (and no longer --data_parallel or
 --model_parallel, which it has)."""
@@ -37,10 +37,12 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.utils.t7_reader",
            "densecap_tpu_torch.cli.convert_t7",
            "densecap_tpu_torch.data.preprocess",
+           "densecap_tpu_torch.utils.h5",
            "chip_smoke"]
 # the port's scripts, imported from scripts/ as they import each other
 SCRIPTS = ["torch_synth_scenes", "torch_overfit_sanity",
-           "torch_generalize_check", "torch_trained_weights_bench"]
+           "torch_generalize_check", "torch_trained_weights_bench",
+           "torch_make_synth_vg", "torch_sustained_train_h5"]
 
 
 @pytest.mark.parametrize("module", MODULES + [f"scripts/{m}" for m in SCRIPTS])
@@ -51,7 +53,7 @@ def test_port_imports_no_jax(module):
         f"sys.path.insert(0, {folder!r})\n"
         f"importlib.import_module({module!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'orbax', 'densecap_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'h5py', 'densecap_tpu'))\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -14,8 +14,10 @@ bf16 no worse than the plain version against an f32 oracle, and each
 wrapper counting exactly its own launches; the int8 product of
 `ops/quant.py` on the card identical to the CPU's; each kernel launched
 on its tensors' device from a thread whose current device is another
-(skipped with fewer than two cards); and two model replicas on one card
-(`parallel.mesh.Replicas`) equal to the model alone.
+(skipped with fewer than two cards); two model replicas on one card
+(`parallel.mesh.Replicas`) equal to the model alone; and the loader over
+an h5 the port's codec wrote, through the train CLI's copy into one
+train step on the card.
 """
 
 import threading
@@ -560,3 +562,69 @@ def test_two_replicas_on_one_card_equal_one(dev):
     for k in ("boxes", "scores"):
         torch.testing.assert_close(torch.cat([getattr(o, k) for o in outs]),
                                    getattr(ref, k), rtol=1e-4, atol=1e-3)
+
+
+def test_codec_h5_into_a_train_step(dev, tmp_path):
+    """DenseCapLoader over an h5 the port's codec wrote, its batch through
+    the train CLI's pinned copy into one Trainer step on the card: the
+    canvases arrive byte-equal, the losses are finite, K2 and K2b
+    launch."""
+    import json
+
+    from densecap_tpu_torch.cli.train import _to_device
+    from densecap_tpu_torch.config import DenseCapConfig
+    from densecap_tpu_torch.data.loader import DenseCapLoader
+    from densecap_tpu_torch.parallel.train_step import Trainer
+    from densecap_tpu_torch.utils import h5
+    from densecap_tpu_torch.utils.checkpoint import init_params, to_torch
+
+    rng = np.random.default_rng(5)
+    n, S, L = 3, 96, 4
+    images = rng.integers(0, 256, (n, 3, S, S), dtype=np.uint8)
+    per_image = [2, 3, 1]
+    boxes = np.array([[30, 30, 20, 24], [50, 40, 30, 20], [20, 60, 16, 30],
+                      [70, 70, 24, 24], [40, 30, 40, 40], [48, 48, 30, 30]],
+                     np.int32)
+    first = np.cumsum([1] + per_image[:-1]).astype(np.int32)
+    with h5.File(tmp_path / "d.h5", "w") as f:
+        d = f.create_dataset("images", images.shape, dtype=np.uint8)
+        for i in range(n):
+            d[i] = images[i]
+        for k in ("image_heights", "image_widths", "original_heights",
+                  "original_widths"):
+            f.create_dataset(k, data=np.full(n, S, np.int32))
+        f.create_dataset("boxes", data=boxes)
+        f.create_dataset("labels", data=rng.integers(1, 6, (6, L)).astype(
+            np.int32))
+        f.create_dataset("img_to_first_box", data=first)
+        f.create_dataset("img_to_last_box",
+                         data=(first + per_image - 1).astype(np.int32))
+        f.create_dataset("split", data=np.zeros(n, np.int32))
+    words = {str(i): f"w{i}" for i in range(1, 6)}
+    (tmp_path / "d.json").write_text(json.dumps({
+        "token_to_idx": {v: int(k) for k, v in words.items()},
+        "idx_to_token": words, "filename_to_idx": {},
+        "idx_to_filename": {}}))
+    loader = DenseCapLoader(tmp_path / "d.h5", tmp_path / "d.json",
+                            max_gt_boxes=4)
+    try:
+        batch = loader.get_batch(2, split=0)
+    finally:
+        loader.close()
+    cfg = DenseCapConfig(vocab_size=5, seq_length=L, image_size=S,
+                         anchors=((8, 8), (16, 16), (12, 24), (24, 12)),
+                         sampler_batch_size=16, rnn_size=32,
+                         rnn_encoding_size=32, fc_dim=64, rpn_num_filters=32,
+                         max_gt_boxes=4, drop_prob=0.0)
+    trainer = Trainer(to_torch(init_params(cfg, seed=3), cfg, dev,
+                               train=True), learning_rate=1e-4)
+    on_card = _to_device(batch, dev)
+    assert torch.equal(on_card["image"].cpu(), torch.from_numpy(
+        images[:2].transpose(0, 2, 3, 1).copy()))
+    build.reset_launches()
+    losses = trainer.step(on_card,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    assert build.launches["roi_align"] >= 1
+    assert build.launches["roi_align_bwd"] >= 1
