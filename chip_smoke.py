@@ -5,9 +5,11 @@ offline inference, int8
 serving, the directory daemon, the native host I/O, data-parallel
 evaluation and serving over model replicas, the reference's t7
 checkpoint path, a short learning check (a small model trained from
-scratch must detect its scenes), and the h5 entry points (preprocess, the
+scratch must detect its scenes), the h5 entry points (preprocess, the
 train CLI, evaluate_model, run_model --input_split, extract_features) on
-the port's own HDF5 codec.
+the port's own HDF5 codec, and the measurement scripts (bench_torch.py
+and scripts/torch_*.py: the profilers, the MFU count, the sweeps, the
+top-k and beam checks, the evaluator bench, the real-artifact runbook).
 
     python3 chip_smoke.py [--before DIR]
 
@@ -178,11 +180,32 @@ its result on its own line; any failure raises and exits non-zero:
      eval and the three other CLIs K1 and K2. The last K1 / K2 inputs at
      each shape of these runs are held to plain afterwards as in 18
      (K2b's positions instance on the train step's; "h5_shapes").
+ 20. [tools] (after 19) the port's measurement scripts, each through its
+     `main` at a short setting (`TOOLS`): bench_torch.py 6 calls, the MFU
+     count with 2 timed calls a program, both stage profilers at 2
+     back-to-back calls a stage, the transfer probe at 5 copies a row,
+     the throughput tune at B = 8 and 16 (depth 2) and its frozen train
+     step at B = 16 for 2 steps, the serving modes (top-k 6000, 2000, -1;
+     the webcam setting), the pre-NMS top-k check and the beam early-exit
+     bench on 20 training steps, the beam profile, the evaluator bench
+     at 200 images; then scripts/torch_real_eval.py end to end on a
+     full-width reference-layout t7 written as [t7] writes it and on VG
+     sources written as [h5]'s (its preprocess, run_model and
+     evaluate_model on the card). Each tool's last JSON line is printed;
+     a tool that fails fails the run. The last K1 call of each shape in
+     the serving modes and the top-k check, and the last K3 call of each
+     shape in the tune, are kept: K1 at the top-k -1 shapes (every
+     anchor: 8 x 18 360 boxes on the 720x544 bucket, 24 300 on the
+     square -> 1000 / 300) must pick what plain picks, and K3 at B = 16
+     must stay within CONV_POOL_RATIO of plain's error against an f32
+     oracle; each is timed alone, through the wrapper and plain, with
+     its bound ("tools_shapes").
 
-Phases 7 (and its thin-frame part), 9-11 and 13-19 each drive their path
+Phases 7 (and its thin-frame part), 9-11 and 13-20 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
-K2 must launch on each (in 16, with one replica and with two), and in 18
-also K2b's d feats instance. So do [train], [train buckets] and [tensor
+K2 must launch on each (in 16, with one replica and with two; in 20 on
+the inference tools and the runbook), and in 18 also K2b's d feats
+instance; in 20 the tune's train step must launch K2b and K3. So do [train], [train buckets] and [tensor
 parallel]'s ranks, where K2, K2b and K3 must launch.
 
 The last lines are a JSON object describing each kernel and
@@ -3306,6 +3329,209 @@ def phase_h5(dev):
     return counts, summary, checks
 
 
+TOOLS_DIR = ROOT / "build" / "tools_smoke"
+# [tools]: each measurement script at a short setting (script, argv)
+TOOLS = (
+    ("bench_torch", ["--iters", "6"]),
+    ("torch_mfu_estimate", ["--iters", "2"]),
+    ("torch_stage_profile_b8", ["--reps", "2", "--iters", "1"]),
+    ("torch_stage_profile_train", ["--reps", "2", "--iters", "1"]),
+    ("torch_transfer_latency_probe", ["--iters", "5"]),
+    ("torch_throughput_tune", ["--batches", "8,16", "--depths", "2",
+                               "--iters", "2", "--train_batches", "16",
+                               "--train_iters", "2"]),
+    ("torch_serving_modes_bench", ["--iters", "2", "--warmup", "1",
+                                   "--single_iters", "3"]),
+    ("torch_prenms_topk_check", ["--steps", "20", "--n_train", "8",
+                                 "--n_val", "2", "--retrain", "--cache",
+                                 str(TOOLS_DIR / "topk.npz")]),
+    ("torch_beam_early_exit_bench", ["--checkpoint",
+                                     str(TOOLS_DIR / "topk.npz"),
+                                     "--iters", "2"]),
+    ("torch_beam_profile", ["--iters", "2"]),
+    ("torch_eval_scale_bench", ["--images", "200", "--meteor_subset",
+                                "5000"]),
+)
+# K1 calls of at least this many boxes an image are the top-k -1 shapes
+TOOLS_K1_MIN_N = 10000
+
+
+def run_tool(name, argv):
+    """One measurement script's `main(argv)` on the card, every launch
+    count set to 0 just before and read just after: (its last JSON line,
+    launches). Its output goes to build/tools_smoke/<name>.log; a tool
+    that fails fails the run."""
+    import importlib
+
+    mod = importlib.import_module(name)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        (rc, counts) = read_launches(lambda: _quiet(mod.main, argv, buf))
+    finally:
+        (TOOLS_DIR / f"{name}.log").write_text(buf.getvalue())
+    if isinstance(rc, int) and rc != 0:
+        raise AssertionError(f"[tools] {name} returned {rc}")
+    last = json.loads(buf.getvalue().strip().splitlines()[-1])
+    shown = {k: v for k, v in last.items() if k not in ("launches",
+                                                       "device")}
+    print(f"[tools] {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f}"
+          f" s; launches {counts}; {json.dumps(shown)}", flush=True)
+    return last, counts
+
+
+def _quiet(fn, argv, buf):
+    with contextlib.redirect_stdout(buf):
+        return fn(argv)
+
+
+def tools_nms_record(args, kw):
+    """K1 on one captured top-k -1 call against plain: picks, times (the
+    launch alone, the wrapper, plain) and the bound from its data."""
+    boxes, scores, thr, k = args
+    Bn, n = boxes.shape[:2]
+    with torch.no_grad():
+        got = nms_mod.nms_cuda(*args, **kw)
+        ref = nms_mod.nms_plain(*args, **kw)
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        order, sboxes, svalid, keep, count = nms_mod.prepare_cuda(
+            boxes, scores, k, **kw)
+        kern_ms = graph_ms(lambda: nms_mod.launch_cuda(sboxes, svalid, thr,
+                                                       keep, count))
+        k_ms = cuda_ms(lambda: nms_mod.nms_cuda(*args, **kw))
+        p_ms = cuda_ms(lambda: nms_mod.nms_plain(*args, **kw), runs=3)
+    pairs, tiles = nms_work(order, svalid, ref[0], ref[1], k)
+    b_ms, b_by = bound_ms(Bn * n * 17 + Bn * (k + 1) * 4,
+                          pairs * NMS_OPS_PER_PAIR, H100_F32_TFLOPS)
+    shape = f"B={Bn} {n}->{k} @{thr} (top-k -1)"
+    print(f"[tools] K1 at {shape}: identical={same} kept/img="
+          f"{ref[1].sum(1).tolist()} kernel alone {kern_ms:.4f} ms, through "
+          f"the wrapper {k_ms:.4f} ms, plain {p_ms:.3f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}: {pairs} IoU tests); {tiles} tiles in the "
+          f"longest image")
+    return {"shape": shape, "identical": same, "max_abs_err": float(
+        (got[0] - ref[0]).abs().max()), "kernel_ms": kern_ms, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "iou_tests": pairs, "tiles": tiles}
+
+
+def tools_conv_pool_record(args):
+    """K3 on one captured bf16 call against plain: its error against an
+    f32 oracle at most CONV_POOL_RATIO x plain's; times and the bound."""
+    x, w, b, eh, ew = args
+    Bn, C, H, W = x.shape
+    with torch.no_grad():
+        oracle = cp.conv_relu_pool_plain(x.float(), w.float(), b.float(),
+                                         eh, ew)
+        kb = cp.conv_relu_pool_cuda(x, w, b, eh, ew).float()
+        pb = cp.conv_relu_pool_plain(x, w, b, eh, ew).float()
+        k_err = float((kb - oracle).abs().max())
+        p_err = float((pb - oracle).abs().max())
+        kp_err = float((kb - pb).abs().max())
+        del oracle, kb, pb
+        k_ms = cuda_ms(lambda: cp.conv_relu_pool_cuda(x, w, b, eh, ew))
+        p_ms = cuda_ms(lambda: cp.conv_relu_pool_plain(x, w, b, eh, ew))
+        prep = cp.prepare_cuda(x, w, b, eh, ew)
+        kern_ms = graph_ms(lambda: cp.launch_cuda(*prep))
+        del prep
+    ops = 2 * 9 * C * C * Bn * H * W
+    b_ms, b_by = bound_ms(
+        (Bn * H * W * C + Bn * (H // 2) * (W // 2) * C + 9 * C * C + C) * 2,
+        ops, H100_BF16_TFLOPS)
+    ok = k_err <= CONV_POOL_RATIO * p_err
+    shape = f"({Bn},{H},{W},{C}) {str(x.dtype).removeprefix('torch.')}"
+    print(f"[tools] K3 at {shape}: max abs err vs f32 oracle kernel "
+          f"{k_err:.4e} plain {p_err:.4e} (limit {CONV_POOL_RATIO}x plain: "
+          f"{ok}); kernel alone {kern_ms:.4f} ms = "
+          f"{ops / kern_ms / 1e9:.1f} TFLOP/s, through the wrapper "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return {"shape": shape, "ok": ok, "max_abs_err": kp_err,
+            "kernel_ms": kern_ms, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_tools(dev):
+    """The port's measurement scripts (`TOOLS`, then
+    scripts/torch_real_eval.py), each at a short setting, in-process, with
+    every launch count set to 0 before each and read after. The last K1
+    call of each shape in the serving-modes bench and the top-k check and
+    the last K3 call of each shape in the throughput tune are kept; after
+    the runs K1 at the top-k -1 shapes (every anchor: 18 360 boxes an
+    image on the 720x544 bucket, 24 300 on the square) and K3 at the
+    tune's train shapes (B = 16) are held to their plain versions and
+    timed. -> ({path: launches}, summary, {kernel: records})."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_make_synth_vg as synth
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    calls = {"nms": {}, "conv_pool": {}}
+    plain = nms_mod.nms_cuda, cp.conv_relu_pool_cuda
+    counts, summary = {}, {}
+    try:
+        for name, argv in TOOLS:
+            if name in ("torch_serving_modes_bench",
+                        "torch_prenms_topk_check"):
+                nms_mod.nms_cuda = capturing(plain[0], calls["nms"])
+            if name == "torch_throughput_tune":
+                cp.conv_relu_pool_cuda = capturing(plain[1],
+                                                   calls["conv_pool"])
+            try:
+                summary[name], counts[f"tools: {name}"] = run_tool(name, argv)
+            finally:
+                nms_mod.nms_cuda, cp.conv_relu_pool_cuda = plain
+            torch.cuda.empty_cache()
+        # the runbook on a full-width reference-layout t7 (as [t7] writes
+        # it) and synthetic VG sources (as [h5] writes them)
+        t0 = time.perf_counter()
+        t7 = TOOLS_DIR / "densecap.t7"
+        obj, _ = reference_t7(FLAGSHIP, seed=0)
+        with open(t7, "wb") as f:
+            T7Writer(f).write(obj)
+        del obj
+        vg = TOOLS_DIR / "vg"
+        synth.write_sources(str(vg), *H5_SOURCES)
+        gb = t7.stat().st_size / 1e9
+        print(f"[tools] the runbook's artifacts: a {gb:.3f} GB t7 and "
+              f"{sum(H5_SOURCES)} VG-like images in "
+              f"{time.perf_counter() - t0:.1f} s")
+        summary["torch_real_eval"], counts["tools: torch_real_eval"] = \
+            run_tool("torch_real_eval", [
+                "--t7", str(t7), "--region_data", str(vg / "regions.json"),
+                "--image_dir", str(vg / "images"), "--split_json",
+                str(vg / "splits.json"), "--workdir", str(TOOLS_DIR / "run"),
+                "--min_token_instances", "1", "--num_workers", "4",
+                "--allow_fallback_scorer"])
+    finally:
+        nms_mod.nms_cuda, cp.conv_relu_pool_cuda = plain
+    for name, c in counts.items():
+        if name.endswith(("bench_torch", "stage_profile_b8", "serving_modes"
+                          "_bench", "beam_profile", "real_eval")):
+            need_launches(c, ("nms", "roi_align"), name)
+    need_launches(counts["tools: torch_throughput_tune"],
+                  ("nms", "roi_align", "roi_align_bwd", "conv_pool"),
+                  "tools: torch_throughput_tune")
+    checks = {
+        "nms": [tools_nms_record(a, kw) for a, kw, _ in calls["nms"].values()
+                if a[0].shape[1] >= TOOLS_K1_MIN_N],
+        "conv_pool": [tools_conv_pool_record(a)
+                      for a, _, _ in calls["conv_pool"].values()
+                      if a[0].shape[0] == 16]}
+    if not (checks["nms"] and checks["conv_pool"]
+            and all(c["identical"] for c in checks["nms"])
+            and all(c["ok"] for c in checks["conv_pool"])):
+        raise AssertionError(f"[tools] a kernel disagrees with its plain "
+                             f"version at the new shapes, or a shape never "
+                             f"ran: {checks}")
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[tools] phase {summary['phase_s']:.1f} s")
+    return counts, summary, checks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", default=None,
@@ -3387,6 +3613,14 @@ def main(argv=None):
         k["h5_shapes"] = shapes
         k["max_abs_err"] = max(k["max_abs_err"],
                                *(c["max_abs_err"] for c in shapes))
+    torch.cuda.empty_cache()
+    tools_counts, tools, tools_checks = phase_tools(dev)
+    paths.update(tools_counts)
+    for k, shapes in ((k1, tools_checks["nms"]),
+                      (k3, tools_checks["conv_pool"])):
+        k["tools_shapes"] = shapes
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               *(c["max_abs_err"] for c in shapes))
     print(f"[train buckets] summary {json.dumps(buckets)}")
     print(f"[profile] summary {json.dumps(profile)}")
     print(f"[tensor parallel] summary {json.dumps(tp)}")
@@ -3397,12 +3631,15 @@ def main(argv=None):
     print(f"[t7] summary {json.dumps({'host_s': t7_secs})}")
     print(f"[learn] summary {json.dumps(learn)}")
     print(f"[h5] summary {json.dumps(h5)}")
+    print(f"[tools] summary {json.dumps(tools)}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
     paths["tensor parallel"] = tp_counts
     paths["learn"] = learn_counts
     train_paths = ("train", "train buckets", "tensor parallel", "learn",
-                   "h5 train")
+                   "h5 train", "tools: torch_stage_profile_train",
+                   "tools: torch_mfu_estimate", "tools: torch_throughput_tune",
+                   "tools: torch_prenms_topk_check")
     kernels = [
         {"name": "nms", "route": "cuda",
          "source": "densecap_tpu_torch/ops/cuda/nms.cu",

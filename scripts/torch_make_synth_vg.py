@@ -61,15 +61,12 @@ def make_scene(rng, W, H, n_regions):
     return img, regions
 
 
-def make_synth_vg(out_dir, n_portrait=300, n_landscape=80, n_square=20,
-                  regions_per_image=40, image_size=720, max_token_length=15,
-                  val_frac=0.1, seed=0, num_workers=8):
-    """Write the scenes' JPEGs, regions.json and splits.json under
-    out_dir, then the port's preprocess of them. -> (h5 path, json path,
-    splits {"train", "val", "test": image ids})."""
+def write_sources(out_dir, n_portrait=300, n_landscape=80, n_square=20,
+                  regions_per_image=40, val_frac=0.1, seed=0):
+    """Write the scenes' JPEGs (images/), regions.json and splits.json
+    under out_dir, a raw Visual Genome's layout. -> splits {"train",
+    "val", "test": image ids}."""
     from PIL import Image
-
-    from densecap_tpu_torch.data import preprocess as pp
 
     rng = np.random.RandomState(seed)
     img_dir = os.path.join(out_dir, "images")
@@ -97,6 +94,19 @@ def make_synth_vg(out_dir, n_portrait=300, n_landscape=80, n_square=20,
         json.dump(data, f)
     with open(os.path.join(out_dir, "splits.json"), "w") as f:
         json.dump(splits, f)
+    return splits
+
+
+def make_synth_vg(out_dir, n_portrait=300, n_landscape=80, n_square=20,
+                  regions_per_image=40, image_size=720, max_token_length=15,
+                  val_frac=0.1, seed=0, num_workers=8):
+    """`write_sources` under out_dir, then the port's preprocess of them.
+    -> (h5 path, json path, splits {"train", "val", "test": image ids})."""
+    from densecap_tpu_torch.data import preprocess as pp
+
+    splits = write_sources(out_dir, n_portrait, n_landscape, n_square,
+                           regions_per_image, val_frac, seed)
+    img_dir = os.path.join(out_dir, "images")
     h5_out = os.path.join(out_dir, "VG-regions.h5")
     json_out = os.path.join(out_dir, "VG-regions-dicts.json")
     pp.main([

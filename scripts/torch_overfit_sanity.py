@@ -43,6 +43,7 @@ HERE = Path(__file__).resolve().parent
 sys.path[:0] = [str(HERE.parent), str(HERE)]
 
 import torch_synth_scenes as scenes  # noqa: E402
+from torch_tool_common import card  # noqa: E402,F401 (the scripts' device rule)
 from densecap_tpu_torch.config import DenseCapConfig  # noqa: E402
 from densecap_tpu_torch.eval.evaluator import (  # noqa: E402
     DenseCaptioningEvaluator)
@@ -76,18 +77,6 @@ def overfit_config(full=False):
         anchors=((32, 32), (64, 64), (48, 96), (96, 48), (96, 96)),
         sampler_batch_size=64, test_pre_nms_topk=-1, rnn_size=64,
         rnn_encoding_size=64, fc_dim=256, rpn_num_filters=64, **common)
-
-
-def card(device):
-    """torch.device(device). A CUDA device must exist, and the kernels
-    are built here, so that a build failure stops the run before it
-    trains."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(f"--device {device}: no CUDA card here")
-        build.load()
-    return dev
 
 
 def device_line(dev):
@@ -242,7 +231,8 @@ def train(cfg, data, steps, batch_size, alpha, log_every=50,
           f"then {'-' if ms is None else f'{ms:.2f}'} ms/step; busy share "
           + (f"{busy['share']:.1%} ({busy['device_ms_per_step']:.2f} ms "
              f"device time per step over steps {window.start}-{window[-1]} "
-             f"under torch.profiler)" if busy else "not measured")
+             f"under torch.profiler)" if busy and "share" in busy
+             else "not measured")
           + f"; launches {counts}", flush=True)
     if dev.type == "cuda":
         need_launches(counts, ("roi_align", "roi_align_bwd_feats"), "train")

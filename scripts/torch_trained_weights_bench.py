@@ -51,6 +51,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import torch_overfit_sanity as overfit  # noqa: E402
 import torch_synth_scenes as scenes  # noqa: E402
+from torch_tool_common import lengths_to_end  # noqa: E402
 from densecap_tpu_torch.config import DenseCapConfig  # noqa: E402
 from densecap_tpu_torch.ops.cuda import build  # noqa: E402
 from densecap_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -67,12 +68,6 @@ def bench_config():
                          test_max_proposals=1000)
     return cfg, cfg.replace(sampler_batch_size=128, max_gt_boxes=scenes.G,
                             drop_prob=0.0)
-
-
-def lengths_to_end(captions, end_token):
-    """(N, T) tokens -> N lengths counted to the first END (T if none)."""
-    is_end = captions == end_token
-    return np.where(is_end.any(1), is_end.argmax(1), captions.shape[1])
 
 
 def length_stats(lengths):

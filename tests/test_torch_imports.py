@@ -38,11 +38,17 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.cli.convert_t7",
            "densecap_tpu_torch.data.preprocess",
            "densecap_tpu_torch.utils.h5",
-           "chip_smoke"]
+           "chip_smoke", "bench_torch"]
 # the port's scripts, imported from scripts/ as they import each other
 SCRIPTS = ["torch_synth_scenes", "torch_overfit_sanity",
            "torch_generalize_check", "torch_trained_weights_bench",
-           "torch_make_synth_vg", "torch_sustained_train_h5"]
+           "torch_make_synth_vg", "torch_sustained_train_h5",
+           "torch_tool_common", "torch_mfu_estimate", "torch_stage_profile_b8",
+           "torch_stage_profile_train", "torch_transfer_latency_probe",
+           "torch_throughput_tune", "torch_serving_modes_bench",
+           "torch_prenms_topk_check", "torch_beam_profile",
+           "torch_beam_early_exit_bench", "torch_eval_scale_bench",
+           "torch_real_eval"]
 
 
 @pytest.mark.parametrize("module", MODULES + [f"scripts/{m}" for m in SCRIPTS])
