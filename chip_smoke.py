@@ -175,12 +175,24 @@ its result on its own line; any failure raises and exits non-zero:
      on the test images, its h5 read back by the codec and held to
      DenseCap.extract_features on the same canvases (valid and paths
      identical, boxes and codes within H5_TOL relative plus 1e-5 of the
-     largest). The train CLI's steps must launch K2 and K2b's positions
+     largest). The train CLI, a call on the one card, must print `mesh:
+     data=1 model=1` and start no process. The train CLI's steps must
+     launch K2 and K2b's positions
      instance (never its d feats one: the trunk stays frozen), its val
      eval and the three other CLIs K1 and K2. The last K1 / K2 inputs at
      each shape of these runs are held to plain afterwards as in 18
      (K2b's positions instance on the train step's; "h5_shapes").
- 20. [tools] (after 19) the port's measurement scripts, each through its
+ 20. [launch] (after 19, on its synthetic VG, removed after) the train
+     CLI's own launcher (`cli.train.main` over the devices [cuda:0,
+     cuda:0] with gloo, as a call lays out two GPUs): two ranks in fresh
+     interpreters, LAUNCH_STEPS steps at B = 8 and full width, ending in
+     rank 0's val eval and the pair. The call must print `mesh: data=2
+     model=1` and launch nothing itself; each rank must launch K2 and
+     K2b, rank 0 also K1 (its val eval), counted in each rank by
+     scripts/torch_train_cli_multigpu.py's probe. Its loss and val
+     histories and pair must be bit-equal to the explicit two-rank run
+     of the same flags (`--num_processes 2`, gloo, cuda:0);
+ 21. [tools] (after 20) the port's measurement scripts, each through its
      `main` at a short setting (`TOOLS`): bench_torch.py 6 calls, the MFU
      count with 2 timed calls a program, both stage profilers at 2
      back-to-back calls a stage, the transfer probe at 5 copies a row,
@@ -201,12 +213,13 @@ its result on its own line; any failure raises and exits non-zero:
      oracle; each is timed alone, through the wrapper and plain, with
      its bound ("tools_shapes").
 
-Phases 7 (and its thin-frame part), 9-11 and 13-20 each drive their path
+Phases 7 (and its thin-frame part), 9-11 and 13-21 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
-K2 must launch on each (in 16, with one replica and with two; in 20 on
+K2 must launch on each (in 16, with one replica and with two; in 21 on
 the inference tools and the runbook), and in 18 also K2b's d feats
-instance; in 20 the tune's train step must launch K2b and K3. So do [train], [train buckets] and [tensor
-parallel]'s ranks, where K2, K2b and K3 must launch.
+instance; in 21 the tune's train step must launch K2b and K3. So do
+[train], [train buckets] and [tensor parallel]'s ranks, where K2, K2b
+and K3 must launch, and [launch]'s ranks, where K2 and K2b must.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -229,7 +242,9 @@ import base64
 import contextlib
 import io
 import json
+import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -3048,6 +3063,8 @@ def phase_native():
 # 32 / 4 / 4 by the generator's 10% val and test
 H5_STEPS = 12
 H5_SOURCES = (30, 8, 2)
+# the synthetic VG of [h5], which [launch] trains on after it
+H5_DIR = ROOT / "build" / "h5_smoke"
 H5_TOL = 1e-4  # extract_features' h5 against the direct call (relative)
 
 
@@ -3110,17 +3127,26 @@ def h5_train(dev, h5_path, json_path, prefix):
         return out
 
     train_cli.Trainer, train_cli.eval_split = TimedTrainer, counted_eval
+    printed = Tee()
     try:
         t0 = time.perf_counter()
-        _, counts = read_launches(lambda: train_cli.main([
-            "--data_h5", str(h5_path), "--data_json", str(json_path),
-            "--device", dev.type, "--batch_size", str(B),
-            "--max_iters", str(H5_STEPS), "--save_checkpoint_every", "1000",
-            "--losses_log_every", "4", "--val_images_use", "-1",
-            "--checkpoint_path", str(prefix)]))
+        with no_children() as started, contextlib.redirect_stdout(printed):
+            _, counts = read_launches(lambda: train_cli.main([
+                "--data_h5", str(h5_path), "--data_json", str(json_path),
+                "--device", dev.type, "--batch_size", str(B),
+                "--max_iters", str(H5_STEPS), "--save_checkpoint_every",
+                "1000", "--losses_log_every", "4", "--val_images_use", "-1",
+                "--checkpoint_path", str(prefix)]))
         wall = time.perf_counter() - t0
     finally:
         train_cli.Trainer, train_cli.eval_split = real_trainer, real_eval
+    # one card: the JAX rule lays a 1 x 1 mesh, trained in this process
+    mesh = printed.getvalue().splitlines()[0]
+    print(f"[h5] the single-GPU call printed {mesh!r} and started "
+          f"{len(started)} processes")
+    if mesh != "mesh: data=1 model=1" or started:
+        raise AssertionError(f"the single-GPU train call printed {mesh!r} "
+                             f"and started {started}")
     steps = {k: v - eval_counts.get(k, 0) for k, v in counts.items()}
     with open(f"{prefix}.json") as f:
         hist = json.load(f)
@@ -3152,6 +3178,41 @@ def h5_train(dev, h5_path, json_path, prefix):
             and np.isfinite(rec["val"]["map"])):
         raise AssertionError(f"the h5 train CLI's run is wrong: {rec}")
     return steps, eval_counts, rec
+
+
+class Tee(io.StringIO):
+    """Keeps what is printed and prints it too."""
+
+    def __init__(self):
+        super().__init__()
+        self.out = sys.stdout
+
+    def write(self, s):
+        self.out.write(s)
+        return super().write(s)
+
+
+@contextlib.contextmanager
+def no_children():
+    """Yields the list of processes started (subprocess.Popen, os.fork)
+    inside the block."""
+    started = []
+    real_popen, real_fork = subprocess.Popen, os.fork
+
+    class Popen(real_popen):
+        def __init__(self, args, *a, **kw):
+            started.append(args)
+            super().__init__(args, *a, **kw)
+
+    def fork():
+        started.append("fork")
+        return real_fork()
+
+    subprocess.Popen, os.fork = Popen, fork
+    try:
+        yield started
+    finally:
+        subprocess.Popen, os.fork = real_popen, real_fork
 
 
 def h5_extract(dev, ck, paths, out):
@@ -3226,13 +3287,11 @@ def phase_h5(dev):
     held to its plain version on them afterwards, as in [learn] (K2b's
     positions instance on the train step's). -> ({path: launches},
     summary, {kernel: its checks' records})."""
-    import shutil
-
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch_make_synth_vg as synth
     from densecap_tpu_torch.cli import evaluate_model, run_model
 
-    work = ROOT / "build" / "h5_smoke"
+    work = H5_DIR
     shutil.rmtree(work, ignore_errors=True)
     t_phase = time.perf_counter()
     calls = {"nms": {}, "roi_align": {}}
@@ -3321,12 +3380,153 @@ def phase_h5(dev):
             and checks["roi_align_bwd"]):
         raise AssertionError(f"[h5] a kernel disagrees with its plain "
                              f"version at the path's shapes: {checks}")
-    shutil.rmtree(work, ignore_errors=True)
     summary = {"h5_mb": mb, "data_s": data_s, "read_rate": rate,
                "train": train, "evaluate_model": {**ev, "wall_s": ev_s},
                "run_model_wall_s": rm_s, "extract_features": extract,
                "phase_s": time.perf_counter() - t_phase}
     return counts, summary, checks
+
+
+# [launch]: iterations of each two-rank train CLI run
+LAUNCH_STEPS = 4
+
+
+def launch_flags(prefix, steps):
+    """The train CLI's flags of a [launch] run on [h5]'s synthetic VG."""
+    return ["--data_h5", str(H5_DIR / "VG-regions.h5"), "--data_json",
+            str(H5_DIR / "VG-regions-dicts.json"), "--device", "cuda",
+            "--batch_size", str(B), "--max_iters", str(steps),
+            "--save_checkpoint_every", "1000", "--losses_log_every", "1",
+            "--val_images_use", "-1", "--checkpoint_path", str(prefix)]
+
+
+def rank_launches(multi, records):
+    """{rank: its count of each kernel} from the probe's records
+    (scripts/torch_train_cli_multigpu.py, imported as `multi`)."""
+    return dict(sorted(
+        (multi.rank_of(rec["argv"]), {k: rec["launches"].get(k, 0)
+                                      for k in build.launches})
+        for rec in multi.read_records(records)
+        if rec["cuda_initialized"] and multi.rank_of(rec["argv"]) is not None))
+
+
+def launched_run(dev, multi, prefix, env):
+    """cli.train.main on cuda:0 twice over gloo, as one call lays out two
+    devices: its launcher starts the ranks (`env` added to the
+    environment they inherit). -> (what the call printed, the launch
+    counts of this process, and of each rank)."""
+    from densecap_tpu_torch.cli import train as train_cli
+
+    printed = Tee()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with contextlib.redirect_stdout(printed):
+            _, counts = read_launches(lambda: train_cli.main(
+                launch_flags(prefix, LAUNCH_STEPS), devices=[dev, dev],
+                backend="gloo"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return printed.getvalue(), counts, rank_launches(
+        multi, Path(env["DENSECAP_PROBE_DIR"]))
+
+
+def explicit_run(multi, prefix, env, store, timeout=600):
+    """The explicit two-rank run of the same flags: `python -m
+    densecap_tpu_torch.cli.train ... --num_processes 2 --process_id r`,
+    one process per rank on cuda:0 (rank_device), gloo through the
+    launcher's environment variable (NCCL refuses two ranks on one
+    GPU). -> each rank's launch counts."""
+    from densecap_tpu_torch.parallel import launch
+
+    rank_env = dict(os.environ, **env)
+    rank_env[distributed.BACKEND_ENV] = "gloo"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "densecap_tpu_torch.cli.train"]
+        + launch.rank_args(launch_flags(prefix, LAUNCH_STEPS), 2, r,
+                           f"file://{store}"), cwd=str(ROOT), env=rank_env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"an explicit rank failed:\n{out[-4000:]}")
+    return rank_launches(multi, Path(env["DENSECAP_PROBE_DIR"]))
+
+
+def same_run(a, b):
+    """Whether two CLI runs at prefixes a and b wrote the same loss and
+    val histories and a bit-equal pair."""
+    hist = []
+    for prefix in (a, b):
+        with open(f"{prefix}.json") as f:
+            h = json.load(f)
+        hist.append((h["loss_history"], h["results_history"]))
+    return hist[0] == hist[1] and same_pair(str(a), str(b))
+
+
+def phase_launch(dev):
+    """The train CLI's own launcher on the one card, on [h5]'s synthetic
+    VG at full width (B = 8, LAUNCH_STEPS steps, ending in the val eval
+    and the pair): `cli.train.main` laying out two devices (cuda:0
+    twice, gloo) starts two ranks, and must print `mesh: data=2 model=1`,
+    launch nothing itself, and write the same loss and val histories and
+    a bit-equal pair as the explicit two-rank run of the same flags on
+    cuda:0. Every rank must launch K2 and K2b, rank 0's val eval K1.
+    -> ({path: launches}, summary)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_train_cli_multigpu as multi
+
+    work = ROOT / "build" / "launch_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "probe").mkdir(parents=True)
+    (work / "probe" / "sitecustomize.py").write_text(multi.PROBE)
+    t_phase = time.perf_counter()
+
+    def env(tag):
+        return multi.probe_env(work / "probe", work / "records" / tag)
+
+    t0 = time.perf_counter()
+    printed, parent, ranks = launched_run(dev, multi, work / "launched" / "ck",
+                                          env("launched"))
+    launched_s = time.perf_counter() - t0
+    mesh = printed.splitlines()[0]
+    t0 = time.perf_counter()
+    explicit = explicit_run(multi, work / "explicit" / "ck",
+                            env("explicit"), work / "store_explicit")
+    explicit_s = time.perf_counter() - t0
+    print(f"[launch] cli.train over [cuda:0, cuda:0] (gloo) printed "
+          f"{mesh!r}; {LAUNCH_STEPS} steps at B={B}, full width, in "
+          f"{launched_s:.1f} s with the ranks' start; the explicit "
+          f"--num_processes 2 run {explicit_s:.1f} s; launches: the call "
+          f"{parent}, its ranks {ranks}, the explicit ranks {explicit}")
+    if mesh != "mesh: data=2 model=1" or any(parent.values()):
+        raise AssertionError(f"[launch] the call printed {mesh!r} or "
+                             f"launched kernels itself: {parent}")
+    for r, c in ranks.items():
+        need_launches(c, ("roi_align", "roi_align_bwd") + (
+            ("nms",) if r == 0 else ()), f"launched rank {r}")
+    if sorted(ranks) != [0, 1]:
+        raise AssertionError(f"[launch] ranks that ran: {sorted(ranks)}")
+    equal = same_run(work / "launched" / "ck", work / "explicit" / "ck")
+    print(f"[launch] the launched run against the explicit one: loss and "
+          f"val histories and the pair bit-equal={equal}")
+    if not equal:
+        raise AssertionError("[launch] the launched run differs from the "
+                             "explicit two-rank run of the same flags")
+    shutil.rmtree(work, ignore_errors=True)
+    summary = {"mesh": mesh, "launched_s": launched_s,
+               "explicit_s": explicit_s, "bit_equal": equal,
+               "phase_s": time.perf_counter() - t_phase}
+    return {f"launch rank {r}": c for r, c in ranks.items()}, summary
 
 
 TOOLS_DIR = ROOT / "build" / "tools_smoke"
@@ -3460,8 +3660,6 @@ def phase_tools(dev):
     image on the 720x544 bucket, 24 300 on the square) and K3 at the
     tune's train shapes (B = 16) are held to their plain versions and
     timed. -> ({path: launches}, summary, {kernel: records})."""
-    import shutil
-
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch_make_synth_vg as synth
 
@@ -3608,6 +3806,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     h5_counts, h5, h5_checks = phase_h5(dev)
     paths.update(h5_counts)
+    launch_counts, launch = phase_launch(dev)
+    paths.update(launch_counts)
+    shutil.rmtree(H5_DIR, ignore_errors=True)
     for k, shapes in ((k1, h5_checks["nms"]), (k2, h5_checks["roi_align"]),
                       (k2b, h5_checks["roi_align_bwd"])):
         k["h5_shapes"] = shapes
@@ -3631,13 +3832,15 @@ def main(argv=None):
     print(f"[t7] summary {json.dumps({'host_s': t7_secs})}")
     print(f"[learn] summary {json.dumps(learn)}")
     print(f"[h5] summary {json.dumps(h5)}")
+    print(f"[launch] summary {json.dumps(launch)}")
     print(f"[tools] summary {json.dumps(tools)}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
     paths["tensor parallel"] = tp_counts
     paths["learn"] = learn_counts
     train_paths = ("train", "train buckets", "tensor parallel", "learn",
-                   "h5 train", "tools: torch_stage_profile_train",
+                   "h5 train", "launch rank 0", "launch rank 1",
+                   "tools: torch_stage_profile_train",
                    "tools: torch_mfu_estimate", "tools: torch_throughput_tune",
                    "tools: torch_prenms_topk_check")
     kernels = [

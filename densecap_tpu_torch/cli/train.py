@@ -34,9 +34,24 @@ write the pair `<checkpoint_path>.npz` (the parameters in the JAX
 package's layout with `__extra__/meta`, readable by both packages'
 `load_params`) and `<checkpoint_path>.optim.pt`.
 
-Multi-process data parallel training runs one process per GPU (the JAX
-CLI runs one per host), each started with the same flags and its own
-`--process_id`:
+One call uses all local devices, as the JAX CLI does ("train
+(data-parallel over all local devices)"): with `--device cuda` (no
+index) and `--num_processes` 1 (the default), it lays out a `data x
+model` mesh over the G visible GPUs by the JAX CLI's rule
+(`local_layout`): the model axis is `--model_parallel M`, the data axis
+D the largest divisor of `--batch_size` that is at most G // M (a
+partial mesh is fine), and it prints `mesh: data=D model=M`. When D x M > 1 it starts D x M ranks, one
+per GPU (cuda:0 .. D x M - 1), that meet over NCCL
+(`parallel/launch.py`), and exits with their status; otherwise, and
+with `--device cpu` or `--device cuda:k`, it trains in this process.
+M > G is an error.
+
+    python -m densecap_tpu_torch.cli.train ... --batch_size 8 \
+        --model_parallel 2          # 8 GPUs: mesh: data=4 model=2
+
+Each rank is the explicit multi-process path below: one process per
+GPU (the JAX CLI runs one per host), each started with the same flags
+and its own `--process_id`:
 
     for r in 0 1 2 3; do python -m densecap_tpu_torch.cli.train ... \
         --batch_size 32 --num_processes 4 --process_id $r \
@@ -52,14 +67,13 @@ writes; the others wait for it.
 `--model_parallel M` adds tensor parallelism: the N processes form
 N / M data slots of M consecutive ranks, and each slot shards fc6, fc7
 and the vocab projection over its ranks (`parallel/tensor_parallel.py`).
-The JAX CLI meshes the local devices of one process; here every rank is
-a process, so M must divide `--num_processes`, and M > 1 in a single
-process is an error. The data axis is N / M: `--batch_size` must be a
-multiple of it, and the loader shard and the sampler's seed (`--seed` +
-1 + data index) follow the data index, so the ranks of one slot load,
-sample and drop out alike. At each evaluation every rank gathers the full
-parameters and Adam state; rank 0 evaluates an unsharded model of them
-and writes them, so a checkpoint resumes at any M.
+With `--num_processes`, M must divide N, and the data axis is N / M:
+`--batch_size` must be a multiple of it. The loader shard and the
+sampler's seed (`--seed` + 1 + data index) follow the data index, so the
+ranks of one slot load, sample and drop out alike. At each evaluation
+every rank gathers the full parameters and Adam state; rank 0 evaluates
+an unsharded model of them and writes them, so a checkpoint resumes at
+any M.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 from collections import deque
 
 import torch
@@ -76,7 +91,7 @@ from ..config import DenseCapConfig
 from ..data.loader import (BATCH_KEYS, BucketedLoader, DenseCapLoader,
                            PrefetchingLoader)
 from ..eval.eval_split import eval_split
-from ..parallel import distributed
+from ..parallel import distributed, launch
 from ..parallel.train_step import Trainer, cosine_decay_schedule
 from ..utils import checkpoint as ckpt
 from ..utils.profiling import StageTimer, device_trace
@@ -145,8 +160,9 @@ def build_argparser():
                         "log steps")
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler trace of steps 3-5 here")
-    # multi-process runs (parallel/distributed.py): one process per GPU,
-    # the same flags, a unique --process_id
+    # explicit multi-process runs (parallel/distributed.py): one process
+    # per GPU, the same flags, a unique --process_id (a single call starts
+    # its own, parallel/launch.py)
     p.add_argument("--coordinator_address", default="",
                    help="host:port of rank 0 (or a tcp:// or file:// URL)")
     p.add_argument("--num_processes", type=int, default=1)
@@ -154,7 +170,8 @@ def build_argparser():
     p.add_argument("--model_parallel", type=int, default=1,
                    help="ranks per model group: fc6, fc7 and the vocab "
                         "projection are sharded over them; must divide "
-                        "--num_processes")
+                        "--num_processes, or without it the call lays a "
+                        "data x model mesh over the visible GPUs")
     return p
 
 
@@ -191,6 +208,24 @@ def write_history(args, it, loss_history, results_history):
                    "results_history": results_history}, f)
 
 
+def local_layout(n_devices, model_parallel, batch_size):
+    """(data, model) of one call over `n_devices` local devices, the JAX
+    CLI's single-host rule (`densecap_tpu/cli/train.py`): model =
+    --model_parallel, data = the largest divisor of --batch_size that is
+    at most n_devices // model. SystemExit names the rule a flag breaks."""
+    m = model_parallel
+    if m < 1:
+        raise SystemExit(f"--model_parallel must be >= 1, got {m}")
+    avail = n_devices // m
+    if avail < 1:
+        raise SystemExit(
+            f"--model_parallel {m} needs --num_processes or {m} visible "
+            f"GPUs, {n_devices} device(s) here: the data axis is the "
+            f"largest divisor of --batch_size at most devices // "
+            f"model_parallel = {n_devices} // {m} = 0")
+    return max(d for d in range(1, avail + 1) if batch_size % d == 0), m
+
+
 def data_axis(args):
     """The data axis N / M of --num_processes N and --model_parallel M,
     after the checks that the rules hold; SystemExit names the rule a
@@ -198,10 +233,6 @@ def data_axis(args):
     nproc, m = max(args.num_processes, 1), args.model_parallel
     if m < 1:
         raise SystemExit(f"--model_parallel must be >= 1, got {m}")
-    if m > 1 and nproc == 1:
-        raise SystemExit(
-            f"--model_parallel {m} needs --num_processes: each rank of a "
-            "model group is a process (one per GPU)")
     if nproc % m:
         raise SystemExit(f"--model_parallel {m} must divide --num_processes "
                          f"{nproc}")
@@ -216,12 +247,48 @@ def data_axis(args):
     return data
 
 
-def main(argv=None):
+def local_devices(device):
+    """The devices one call may lay its mesh over: every visible GPU for
+    a CUDA device that names no index, else `device` alone."""
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def main(argv=None, devices=None, backend=None, command=None):
+    """The CLI. An explicit --num_processes runs this process as one
+    rank; otherwise the call lays its mesh over `devices` (default
+    `local_devices`) and either trains here or starts its ranks
+    (`parallel.launch.launch` with `backend` and `command`: the tests
+    start CPU ranks over gloo with a body of their own, chip_smoke.py two
+    gloo ranks on cuda:0)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
+    if args.num_processes > 1:
+        _run(args, distributed.rank_device(resolve_device(args.device),
+                                           args.process_id))
+        return
+    device = resolve_device(args.device)
+    devices = local_devices(device) if devices is None else list(devices)
+    data, model = local_layout(len(devices), args.model_parallel,
+                               args.batch_size)
+    print(f"mesh: data={data} model={model}", flush=True)
+    if data * model == 1:
+        _run(args, torch.device(devices[0]))
+        return
+    code = launch.launch(argv, devices[:data * model], backend=backend,
+                         command=command)
+    if code:
+        raise SystemExit(code)
+
+
+def _run(args, device):
+    """Train in this process: a single-process run, or one rank of
+    --num_processes."""
     nproc = max(args.num_processes, 1)
     local_batch_size = args.batch_size // data_axis(args)
     rank = args.process_id if nproc > 1 else 0
-    device = distributed.rank_device(resolve_device(args.device), rank)
     with contextlib.ExitStack() as stack:
         distributed.initialize(
             coordinator_address=args.coordinator_address or None,
@@ -402,12 +469,7 @@ def _train(args, device, nproc, local_batch_size, stack):
                 write_history(args, it, loss_history, results_history)
                 if map_score > best_val_score:
                     best_val_score = map_score
-                    # without TP, the call save_checkpoint has always
-                    # had (hooks that wrap it take these four arguments)
-                    if host is None:
-                        save_checkpoint(args, trainer, it, meta)
-                    else:
-                        save_checkpoint(args, trainer, it, meta, host=host)
+                    save_checkpoint(args, trainer, it, meta, host=host)
             distributed.barrier(device)
     drain(force=True)
 

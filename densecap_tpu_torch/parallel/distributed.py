@@ -22,11 +22,16 @@ world.
 Single-process runs form no group: `initialize` returns False and the
 helpers below answer as rank 0 of 1, model rank 0 of 1 and data rank 0
 of 1.
+
+A rank started by `parallel.launch` finds its device and backend in its
+environment (`DEVICE_ENV`, `BACKEND_ENV`, which only the launcher sets):
+`rank_device` and `initialize` take them over their own defaults.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 
 import torch
 import torch.distributed as dist
@@ -40,10 +45,18 @@ TIMEOUT = datetime.timedelta(minutes=60)
 # otherwise; `shutdown` empties it.
 _groups = {}
 
+# What `parallel.launch` tells each rank it starts: its device (e.g.
+# "cuda:1", "cpu") and the group's backend ("nccl", "gloo").
+DEVICE_ENV = "DENSECAP_TORCH_RANK_DEVICE"
+BACKEND_ENV = "DENSECAP_TORCH_RANK_BACKEND"
+
 
 def rank_device(device, process_id=0):
-    """The device of rank `process_id`: cuda:{process_id % device count}
-    for a CUDA device that names no index, else `device` as given."""
+    """The device of rank `process_id`: the one its launcher chose
+    (`DEVICE_ENV`), else cuda:{process_id % device count} for a CUDA
+    device that names no index, else `device` as given."""
+    if os.environ.get(DEVICE_ENV):
+        return torch.device(os.environ[DEVICE_ENV])
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda",
@@ -63,8 +76,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
 
     The group meets at `init_method` (a `tcp://` or `file://` URL), or at
     `coordinator_address`: "host:port" of rank 0 becomes tcp://host:port,
-    and a URL is taken as it is. backend: NCCL for a CUDA `device`, gloo
-    for the CPU, unless given.
+    and a URL is taken as it is. backend: the launcher's
+    (`BACKEND_ENV`), else NCCL for a CUDA `device` and gloo for the CPU,
+    unless given.
     """
     if num_processes is None:
         return False
@@ -76,7 +90,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         init_method = (coordinator_address if "://" in coordinator_address
                        else f"tcp://{coordinator_address}")
     if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
+        backend = os.environ.get(BACKEND_ENV) or (
+            "nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method,

@@ -205,8 +205,8 @@ def test_train_cli_saves_only_when_val_map_improves(setup, tmp_path,
             "ap_results": {"map": next(maps)}})
     monkeypatch.setattr(
         train_cli, "save_checkpoint",
-        lambda args, trainer, it, meta: (saved.append(it),
-                                         real_save(args, trainer, it, meta)))
+        lambda args, trainer, it, meta, **kw: (
+            saved.append(it), real_save(args, trainer, it, meta, **kw)))
     prefix = str(tmp_path / "ck" / "densecap")
     train_cli.main(["--device", "cpu", "--data_h5", str(setup / "d.h5"),
                     "--data_json", str(setup / "d.json"),

@@ -31,6 +31,7 @@ MODULES = ["densecap_tpu_torch", "densecap_tpu_torch.serve.server",
            "densecap_tpu_torch.native_lib",
            "densecap_tpu_torch.utils.profiling",
            "densecap_tpu_torch.parallel.distributed",
+           "densecap_tpu_torch.parallel.launch",
            "densecap_tpu_torch.utils.checkpoint",
            "densecap_tpu_torch.parallel.mesh",
            "densecap_tpu_torch.parallel.tensor_parallel",
@@ -48,7 +49,7 @@ SCRIPTS = ["torch_synth_scenes", "torch_overfit_sanity",
            "torch_throughput_tune", "torch_serving_modes_bench",
            "torch_prenms_topk_check", "torch_beam_profile",
            "torch_beam_early_exit_bench", "torch_eval_scale_bench",
-           "torch_real_eval"]
+           "torch_real_eval", "torch_train_cli_multigpu"]
 
 
 @pytest.mark.parametrize("module", MODULES + [f"scripts/{m}" for m in SCRIPTS])
