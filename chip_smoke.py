@@ -182,17 +182,30 @@ its result on its own line; any failure raises and exits non-zero:
      eval and the three other CLIs K1 and K2. The last K1 / K2 inputs at
      each shape of these runs are held to plain afterwards as in 18
      (K2b's positions instance on the train step's; "h5_shapes").
- 20. [launch] (after 19, on its synthetic VG, removed after) the train
-     CLI's own launcher (`cli.train.main` over the devices [cuda:0,
-     cuda:0] with gloo, as a call lays out two GPUs): two ranks in fresh
+ 20. [launch] (after 19, on its synthetic VG) the train CLI's own
+     launcher (`cli.train.main` over the devices [cuda:0, cuda:0]
+     with gloo, as a call lays out two GPUs): two ranks in fresh
      interpreters, LAUNCH_STEPS steps at B = 8 and full width, ending in
      rank 0's val eval and the pair. The call must print `mesh: data=2
      model=1` and launch nothing itself; each rank must launch K2 and
      K2b, rank 0 also K1 (its val eval), counted in each rank by
      scripts/torch_train_cli_multigpu.py's probe. Its loss and val
      histories and pair must be bit-equal to the explicit two-rank run
-     of the same flags (`--num_processes 2`, gloo, cuda:0);
- 21. [tools] (after 20) the port's measurement scripts, each through its
+     of the same flags (`--device cuda:0 --num_processes 2`, gloo);
+ 21. [multihost] (after 20, on the same VG, removed after) multi-host
+     training as the JAX CLI runs it, both hosts on the one card: two
+     host calls at once (`--num_processes 2 --process_id h`, a TCP
+     store at 127.0.0.1 that host 0's call serves), each
+     `cli.train.main` over [cuda:0, cuda:0] with gloo at
+     `--model_parallel 2`, so global ranks 2h and 2h + 1 of 4. Both
+     print `mesh: data=2 model=2`; every rank must launch K2 and K2b,
+     global rank 0 also K1; the loss and val histories and pair must be
+     bit-equal to the explicit run of four one-device calls (`--device
+     cuda:0 --num_processes 4`, gloo). Global rank 0's last K1 and K2
+     inputs at each shape (its train step's local batch of 4, which
+     [launch] runs too) are held to plain afterwards as in 19
+     ("multihost_shapes");
+ 22. [tools] (after 21) the port's measurement scripts, each through its
      `main` at a short setting (`TOOLS`): bench_torch.py 6 calls, the MFU
      count with 2 timed calls a program, both stage profilers at 2
      back-to-back calls a stage, the transfer probe at 5 copies a row,
@@ -240,6 +253,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -1980,6 +1994,27 @@ def learn_roi_check(args, grad, seed, tag="learn"):
     return rec
 
 
+def hold_captured(calls, tag, seed):
+    """K1, K2 and K2b held to their plain versions on the inputs a path
+    called them with ({"nms": {key: (args, kw, grad)}, "roi_align": ...},
+    as `capturing` keeps them) -> {kernel: its checks' records}. Fails
+    unless every check holds and each kernel has one."""
+    checks = {"nms": [learn_nms_check(a, kw, tag=tag)
+                      for a, kw, _ in calls["nms"].values()],
+              "roi_align": [], "roi_align_bwd": []}
+    for i, (a, _, grad) in enumerate(calls["roi_align"].values()):
+        checks["roi_align_bwd" if grad else "roi_align"].append(
+            learn_roi_check(a, grad, seed=seed + i, tag=tag))
+    if not (all(c["identical"] for c in checks["nms"])
+            and all(c["ok"] for c in checks["roi_align"]
+                    + checks["roi_align_bwd"])
+            and checks["nms"] and checks["roi_align"]
+            and checks["roi_align_bwd"]):
+        raise AssertionError(f"[{tag}] a kernel disagrees with its plain "
+                             f"version at the path's shapes: {checks}")
+    return checks
+
+
 def phase_learn(dev):
     """The small overfit config of scripts/torch_overfit_sanity.py trained
     from scratch on the card for LEARN_STEPS steps (its cosine over those
@@ -2029,19 +2064,7 @@ def phase_learn(dev):
           f"({res['score_method']}); launches {counts}")
     need_launches(counts, ("nms", "roi_align", "roi_align_bwd_feats"),
                   "learn")
-    checks = {"nms": [learn_nms_check(a, kw)
-                      for a, kw, _ in calls["nms"].values()],
-              "roi_align": [], "roi_align_bwd": []}
-    for i, (a, _, grad) in enumerate(calls["roi_align"].values()):
-        checks["roi_align_bwd" if grad else "roi_align"].append(
-            learn_roi_check(a, grad, seed=30 + i))
-    if not (all(c["identical"] for c in checks["nms"])
-            and all(c["ok"] for c in checks["roi_align"]
-                    + checks["roi_align_bwd"])
-            and checks["nms"] and checks["roi_align"]
-            and checks["roi_align_bwd"]):
-        raise AssertionError(f"[learn] a kernel disagrees with its plain "
-                             f"version at the path's shapes: {checks}")
+    checks = hold_captured(calls, "learn", seed=30)
     if not res["detmap"] > overfit.DETMAP_GATE:
         raise AssertionError(f"[learn] detection never learned: detmap "
                              f"{res['detmap']:.4f} <= {overfit.DETMAP_GATE}")
@@ -3367,19 +3390,7 @@ def phase_h5(dev):
             dev, ck, test_paths, work / "feats.h5")
     finally:
         nms_mod.nms_cuda, roi_mod.roi_align_cuda = plain
-    checks = {"nms": [learn_nms_check(a, kw, tag="h5")
-                      for a, kw, _ in calls["nms"].values()],
-              "roi_align": [], "roi_align_bwd": []}
-    for i, (a, _, grad) in enumerate(calls["roi_align"].values()):
-        checks["roi_align_bwd" if grad else "roi_align"].append(
-            learn_roi_check(a, grad, seed=50 + i, tag="h5"))
-    if not (all(c["identical"] for c in checks["nms"])
-            and all(c["ok"] for c in checks["roi_align"]
-                    + checks["roi_align_bwd"])
-            and checks["nms"] and checks["roi_align"]
-            and checks["roi_align_bwd"]):
-        raise AssertionError(f"[h5] a kernel disagrees with its plain "
-                             f"version at the path's shapes: {checks}")
+    checks = hold_captured(calls, "h5", seed=50)
     summary = {"h5_mb": mb, "data_s": data_s, "read_rate": rate,
                "train": train, "evaluate_model": {**ev, "wall_s": ev_s},
                "run_model_wall_s": rm_s, "extract_features": extract,
@@ -3391,10 +3402,11 @@ def phase_h5(dev):
 LAUNCH_STEPS = 4
 
 
-def launch_flags(prefix, steps):
-    """The train CLI's flags of a [launch] run on [h5]'s synthetic VG."""
+def launch_flags(prefix, steps, device="cuda"):
+    """The train CLI's flags of a [launch] or [multihost] run on [h5]'s
+    synthetic VG."""
     return ["--data_h5", str(H5_DIR / "VG-regions.h5"), "--data_json",
-            str(H5_DIR / "VG-regions-dicts.json"), "--device", "cuda",
+            str(H5_DIR / "VG-regions-dicts.json"), "--device", device,
             "--batch_size", str(B), "--max_iters", str(steps),
             "--save_checkpoint_every", "1000", "--losses_log_every", "1",
             "--val_images_use", "-1", "--checkpoint_path", str(prefix)]
@@ -3404,10 +3416,10 @@ def rank_launches(multi, records):
     """{rank: its count of each kernel} from the probe's records
     (scripts/torch_train_cli_multigpu.py, imported as `multi`)."""
     return dict(sorted(
-        (multi.rank_of(rec["argv"]), {k: rec["launches"].get(k, 0)
-                                      for k in build.launches})
+        (multi.rank_of(rec), {k: rec["launches"].get(k, 0)
+                              for k in build.launches})
         for rec in multi.read_records(records)
-        if rec["cuda_initialized"] and multi.rank_of(rec["argv"]) is not None))
+        if rec["cuda_initialized"] and multi.rank_of(rec) is not None))
 
 
 def launched_run(dev, multi, prefix, env):
@@ -3435,22 +3447,22 @@ def launched_run(dev, multi, prefix, env):
         multi, Path(env["DENSECAP_PROBE_DIR"]))
 
 
-def explicit_run(multi, prefix, env, store, timeout=600):
-    """The explicit two-rank run of the same flags: `python -m
-    densecap_tpu_torch.cli.train ... --num_processes 2 --process_id r`,
-    one process per rank on cuda:0 (rank_device), gloo through the
-    launcher's environment variable (NCCL refuses two ranks on one
-    GPU). -> each rank's launch counts."""
-    from densecap_tpu_torch.parallel import launch
-
+def explicit_run(multi, prefix, env, store, timeout=600, world=2,
+                 extra=()):
+    """The explicit `world`-rank run of the same flags: `python -m
+    densecap_tpu_torch.cli.train ... --device cuda:0 --num_processes
+    <world> --process_id r`, one one-device call per rank on cuda:0,
+    gloo through the launcher's environment variable (NCCL refuses two
+    ranks on one GPU). -> each rank's launch counts."""
     rank_env = dict(os.environ, **env)
     rank_env[distributed.BACKEND_ENV] = "gloo"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "densecap_tpu_torch.cli.train"]
-        + launch.rank_args(launch_flags(prefix, LAUNCH_STEPS), 2, r,
-                           f"file://{store}"), cwd=str(ROOT), env=rank_env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in (0, 1)]
+        + launch_flags(prefix, LAUNCH_STEPS, device="cuda:0") + list(extra)
+        + ["--num_processes", str(world), "--process_id", str(r),
+           "--coordinator_address", f"file://{store}"], cwd=str(ROOT),
+        env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
     try:
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -3527,6 +3539,136 @@ def phase_launch(dev):
                "explicit_s": explicit_s, "bit_equal": equal,
                "phase_s": time.perf_counter() - t_phase}
     return {f"launch rank {r}": c for r, c in ranks.items()}, summary
+
+
+# [multihost]: one host call of a job, over two gloo ranks on cuda:0
+# (argv: the CLI's flags)
+MULTIHOST_CALL = ("import sys\n"
+                  "from densecap_tpu_torch.cli import train\n"
+                  "train.main(sys.argv[1:], devices=['cuda:0', 'cuda:0'], "
+                  "backend='gloo')\n")
+MULTIHOST_FLAGS = ("--model_parallel", "2")
+# [multihost]: after the probe and `capturing` in the ranks'
+# sitecustomize: global rank 0 keeps the last K1 and K2 inputs at each
+# shape it calls them with, and saves them at exit (on the CPU) into
+# $DENSECAP_PROBE_CAPTURE, to be held to plain after the phase
+MULTIHOST_CAPTURE = """
+
+if os.environ.get("DENSECAP_TORCH_RANK") == "0":
+    import torch
+    from densecap_tpu_torch.ops import nms as _nms, roi_align as _roi
+    _calls = {"nms": {}, "roi_align": {}}
+    _nms.nms_cuda = capturing(_nms.nms_cuda, _calls["nms"])
+    _roi.roi_align_cuda = capturing(_roi.roi_align_cuda, _calls["roi_align"])
+
+    def _cpu(v):
+        return v.cpu() if isinstance(v, torch.Tensor) else v
+
+    @atexit.register
+    def _save():
+        torch.save({k: {str(key): ([_cpu(a) for a in args],
+                                   {n: _cpu(v) for n, v in kw.items()}, grad)
+                        for key, (args, kw, grad) in calls.items()}
+                    for k, calls in _calls.items()},
+                   os.path.join(os.environ["DENSECAP_PROBE_CAPTURE"],
+                                "rank0.pt"))
+"""
+
+
+def phase_multihost(dev):
+    """Multi-host training as the JAX CLI runs it, both hosts on the one
+    card, on [h5]'s synthetic VG at full width (B = 8, LAUNCH_STEPS steps,
+    `--model_parallel 2`, ending in the val eval and the pair): two host
+    calls at once (`--num_processes 2 --process_id h --coordinator_address
+    127.0.0.1:<port>`, each `cli.train.main` over [cuda:0, cuda:0] with
+    gloo), meeting at the TCP store host 0's call serves; each starts its
+    two ranks as global ranks 2h and 2h + 1 of 4. Both must print `mesh:
+    data=2 model=2` (host 1 nothing more), and the run must write the same
+    loss and val histories and a bit-equal pair as the explicit run of
+    four one-device calls (`--device cuda:0 --num_processes 4`, gloo).
+    Every rank must launch K2 and K2b, global rank 0 also K1, counted in
+    each rank by scripts/torch_train_cli_multigpu.py's probe. Global rank
+    0 keeps the last K1 and K2 inputs at each shape (MULTIHOST_CAPTURE:
+    the train step's local batch of 4, B / data), and each kernel is held
+    to its plain version on them after the phase, as in [h5]. The store
+    and gloo cross 127.0.0.1, not a network. -> ({path: launches},
+    summary, {kernel: its checks' records})."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_train_cli_multigpu as multi
+    from torch_train_cli_multihost import free_port
+
+    work = ROOT / "build" / "multihost_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "probe").mkdir(parents=True)
+    (work / "captured").mkdir()
+    (work / "probe" / "sitecustomize.py").write_text(
+        multi.PROBE + "\n\n" + inspect.getsource(capturing)
+        + MULTIHOST_CAPTURE)
+    t_phase = time.perf_counter()
+    port = free_port()
+    host_env = dict(os.environ, **multi.probe_env(
+        work / "probe", work / "records" / "hosts"),
+        DENSECAP_PROBE_CAPTURE=str(work / "captured"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_CALL]
+        + launch_flags(work / "hosts" / "ck", LAUNCH_STEPS)
+        + list(MULTIHOST_FLAGS)
+        + ["--num_processes", "2", "--process_id", str(h),
+           "--coordinator_address", f"127.0.0.1:{port}"], cwd=str(ROOT),
+        env=host_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for h in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    hosts_s = time.perf_counter() - t0
+    for h, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[multihost] host call {h} exited "
+                                 f"{p.returncode}:\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+    ranks = rank_launches(multi, work / "records" / "hosts")
+    t0 = time.perf_counter()
+    explicit = explicit_run(multi, work / "explicit" / "ck",
+                            multi.probe_env(work / "probe",
+                                            work / "records" / "explicit"),
+                            work / "store_explicit", world=4,
+                            extra=MULTIHOST_FLAGS)
+    explicit_s = time.perf_counter() - t0
+    mesh = [out.splitlines()[0] if out else "" for out, _ in outs]
+    print(f"[multihost] two host calls over [cuda:0, cuda:0] each (gloo, "
+          f"a TCP store at 127.0.0.1:{port}) printed {mesh}; "
+          f"{LAUNCH_STEPS} steps at B={B}, full width, in {hosts_s:.1f} s "
+          f"with the ranks' start; the explicit four one-device calls "
+          f"{explicit_s:.1f} s; launches: the hosts' ranks {ranks}, the "
+          f"explicit ranks {explicit}")
+    want = "mesh: data=2 model=2"
+    if mesh != [want, want] or outs[1][0] != want + "\n":
+        raise AssertionError(f"[multihost] the host calls printed {mesh} "
+                             f"(host 1: {outs[1][0]!r})")
+    if "val mAP" not in outs[0][0]:
+        raise AssertionError("[multihost] global rank 0 printed no val mAP")
+    if sorted(ranks) != [0, 1, 2, 3]:
+        raise AssertionError(f"[multihost] ranks that ran: {sorted(ranks)}")
+    for r, c in ranks.items():
+        need_launches(c, ("roi_align", "roi_align_bwd") + (
+            ("nms",) if r == 0 else ()), f"multihost rank {r}")
+    equal = same_run(work / "hosts" / "ck", work / "explicit" / "ck")
+    print(f"[multihost] the two-host run against the explicit four-call "
+          f"one: loss and val histories and the pair bit-equal={equal}")
+    if not equal:
+        raise AssertionError("[multihost] the two-host run differs from "
+                             "the explicit four-rank run of the same flags")
+    checks = hold_captured(torch.load(work / "captured" / "rank0.pt",
+                                      map_location=dev, weights_only=True),
+                           "multihost", seed=70)
+    shutil.rmtree(work, ignore_errors=True)
+    summary = {"mesh": mesh, "hosts_s": hosts_s, "explicit_s": explicit_s,
+               "bit_equal": equal, "phase_s": time.perf_counter() - t_phase}
+    return ({f"multihost rank {r}": c for r, c in ranks.items()}, summary,
+            checks)
 
 
 TOOLS_DIR = ROOT / "build" / "tools_smoke"
@@ -3808,12 +3950,16 @@ def main(argv=None):
     paths.update(h5_counts)
     launch_counts, launch = phase_launch(dev)
     paths.update(launch_counts)
+    multihost_counts, multihost, multihost_checks = phase_multihost(dev)
+    paths.update(multihost_counts)
     shutil.rmtree(H5_DIR, ignore_errors=True)
-    for k, shapes in ((k1, h5_checks["nms"]), (k2, h5_checks["roi_align"]),
-                      (k2b, h5_checks["roi_align_bwd"])):
-        k["h5_shapes"] = shapes
-        k["max_abs_err"] = max(k["max_abs_err"],
-                               *(c["max_abs_err"] for c in shapes))
+    for key, checks in (("h5_shapes", h5_checks),
+                         ("multihost_shapes", multihost_checks)):
+        for k, shapes in ((k1, checks["nms"]), (k2, checks["roi_align"]),
+                          (k2b, checks["roi_align_bwd"])):
+            k[key] = shapes
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   *(c["max_abs_err"] for c in shapes))
     torch.cuda.empty_cache()
     tools_counts, tools, tools_checks = phase_tools(dev)
     paths.update(tools_counts)
@@ -3833,6 +3979,7 @@ def main(argv=None):
     print(f"[learn] summary {json.dumps(learn)}")
     print(f"[h5] summary {json.dumps(h5)}")
     print(f"[launch] summary {json.dumps(launch)}")
+    print(f"[multihost] summary {json.dumps(multihost)}")
     print(f"[tools] summary {json.dumps(tools)}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
@@ -3840,6 +3987,8 @@ def main(argv=None):
     paths["learn"] = learn_counts
     train_paths = ("train", "train buckets", "tensor parallel", "learn",
                    "h5 train", "launch rank 0", "launch rank 1",
+                   "multihost rank 0", "multihost rank 1",
+                   "multihost rank 2", "multihost rank 3",
                    "tools: torch_stage_profile_train",
                    "tools: torch_mfu_estimate", "tools: torch_throughput_tune",
                    "tools: torch_prenms_topk_check")

@@ -36,44 +36,78 @@ package's layout with `__extra__/meta`, readable by both packages'
 
 One call uses all local devices, as the JAX CLI does ("train
 (data-parallel over all local devices)"): with `--device cuda` (no
-index) and `--num_processes` 1 (the default), it lays out a `data x
-model` mesh over the G visible GPUs by the JAX CLI's rule
-(`local_layout`): the model axis is `--model_parallel M`, the data axis
-D the largest divisor of `--batch_size` that is at most G // M (a
-partial mesh is fine), and it prints `mesh: data=D model=M`. When D x M > 1 it starts D x M ranks, one
-per GPU (cuda:0 .. D x M - 1), that meet over NCCL
-(`parallel/launch.py`), and exits with their status; otherwise, and
-with `--device cpu` or `--device cuda:k`, it trains in this process.
-M > G is an error.
+index) it lays its ranks over the G visible GPUs, one process per GPU
+(`parallel/launch.py`); `--device cpu` and `--device cuda:k` are one
+device, G = 1. `CUDA_VISIBLE_DEVICES` picks the GPUs.
+
+One host (no `--num_processes`): the mesh is `data x model` by the JAX
+CLI's single-host rule (`local_layout`): the model axis is
+`--model_parallel M`, the data axis D the largest divisor of
+`--batch_size` that is at most G // M (a partial mesh is fine); it
+prints `mesh: data=D model=M`. When D x M > 1 it starts D x M ranks on
+cuda:0 .. D x M - 1, which meet over NCCL, and exits with their status;
+otherwise it trains in this process. M > G is an error.
 
     python -m densecap_tpu_torch.cli.train ... --batch_size 8 \
         --model_parallel 2          # 8 GPUs: mesh: data=4 model=2
 
-Each rank is the explicit multi-process path below: one process per
-GPU (the JAX CLI runs one per host), each started with the same flags
-and its own `--process_id`:
+Several hosts: `--num_processes N`, `--process_id h` and
+`--coordinator_address host:port` mean what the JAX CLI's mean. The job
+is N calls, one per host, each with the same flags and its own
+`--process_id`; host 0's call serves a TCP store at the coordinator,
+where the calls meet (every host must lay out the same G, and a host
+whose peers do not all arrive within `launch.RENDEZVOUS_S`, 300 s, exits
+non-zero). Host h starts its G ranks as global ranks h x G + r of
+N x G; rank 0, on host 0, alone prints beyond the `mesh:` line that
+every host call prints, evaluates and writes. The mesh follows the JAX
+CLI's multi-host rule (`host_layout`): it spans all N x G devices, no
+partial mesh; M must divide G (so a model group of M consecutive ranks
+never spans hosts), and `--batch_size` must be a multiple of the data
+axis N x G / M. When a rank fails on one host, the other hosts' calls
+end their ranks and exit within seconds (`parallel/launch.py`).
+
+    # on each of two hosts of 8 GPUs, h = 0, 1: mesh: data=16 model=1
+    python -m densecap_tpu_torch.cli.train ... --batch_size 32 \
+        --num_processes 2 --process_id $h --coordinator_address host0:29500
+
+Every host reads `--data_h5`, `--data_json` and
+`--checkpoint_start_from`, and rank 0 writes under `--checkpoint_path`
+(as every JAX host reads the orbax state and process 0 writes): the
+hosts need the same paths, meaning a shared filesystem.
+
+A call that sees one device (G = 1) is one rank: `--device cuda:$r
+--num_processes N --process_id $r` is rank r of N, the explicit
+one-process-per-GPU run. With a TCP coordinator it is a host call like
+any other: it meets the job, prints no `mesh:` line and starts its one
+rank under the launcher's watch, so a failure on any host ends it too.
+With a file:// URL as `--coordinator_address` it trains in its own
+process, with no store served and no watch. Its model groups may span
+calls: the ranks of one group each load the same slot of the batch, so
+it keeps the rank rule (M divides N, `--batch_size` a multiple of N / M)
+where the JAX rule, whose processes each feed a whole slice of the data
+axis, would refuse M > 1 over one-device hosts.
 
     for r in 0 1 2 3; do python -m densecap_tpu_torch.cli.train ... \
-        --batch_size 32 --num_processes 4 --process_id $r \
-        --coordinator_address localhost:29500 & done
+        --device cuda:$r --batch_size 32 --num_processes 4 \
+        --process_id $r --coordinator_address localhost:29500 & done
 
 `--batch_size` is the global batch; each rank loads its share from a
 round-robin shard of the split (or, with buckets, its slice of the shared
-schedule), samples with a generator seeded `--seed` + 1 + rank (its data
-index, below), and the gradients are all-reduced
+schedule), samples with a generator seeded `--seed` + 1 + its data
+index (below), and the gradients are all-reduced
 (`parallel.train_step.Trainer`). Rank 0 alone evaluates, prints and
-writes; the others wait for it.
+writes; the others wait for it. The history's `opt` records the ranks:
+`num_processes` the world and `process_id` the rank, as the explicit run
+writes them.
 
-`--model_parallel M` adds tensor parallelism: the N processes form
-N / M data slots of M consecutive ranks, and each slot shards fc6, fc7
+`--model_parallel M` adds tensor parallelism: the world's W ranks form
+W / M data slots of M consecutive ranks, and each slot shards fc6, fc7
 and the vocab projection over its ranks (`parallel/tensor_parallel.py`).
-With `--num_processes`, M must divide N, and the data axis is N / M:
-`--batch_size` must be a multiple of it. The loader shard and the
-sampler's seed (`--seed` + 1 + data index) follow the data index, so the
-ranks of one slot load, sample and drop out alike. At each evaluation
-every rank gathers the full parameters and Adam state; rank 0 evaluates
-an unsharded model of them and writes them, so a checkpoint resumes at
-any M.
+The loader shard and the sampler's seed (`--seed` + 1 + data index)
+follow the data index, so the ranks of one slot load, sample and drop
+out alike. At each evaluation every rank gathers the full parameters
+and Adam state; rank 0 evaluates an unsharded model of them and writes
+them, so a checkpoint resumes at any M.
 """
 
 from __future__ import annotations
@@ -160,18 +194,20 @@ def build_argparser():
                         "log steps")
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler trace of steps 3-5 here")
-    # explicit multi-process runs (parallel/distributed.py): one process
-    # per GPU, the same flags, a unique --process_id (a single call starts
-    # its own, parallel/launch.py)
+    # multi-host runs (as the JAX CLI's): one call per host with the same
+    # coordinator address and a unique --process_id; each call starts a
+    # rank per local device (parallel/launch.py)
     p.add_argument("--coordinator_address", default="",
-                   help="host:port of rank 0 (or a tcp:// or file:// URL)")
-    p.add_argument("--num_processes", type=int, default=1)
-    p.add_argument("--process_id", type=int, default=0)
+                   help="host:port of process 0 (multi-host runs; a "
+                        "one-device call may give a tcp:// or file:// URL)")
+    p.add_argument("--num_processes", type=int, default=1,
+                   help="hosts of the job, one call each")
+    p.add_argument("--process_id", type=int, default=0,
+                   help="this call's host, 0 .. --num_processes - 1")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="ranks per model group: fc6, fc7 and the vocab "
-                        "projection are sharded over them; must divide "
-                        "--num_processes, or without it the call lays a "
-                        "data x model mesh over the visible GPUs")
+                        "projection are sharded over them; the call lays "
+                        "a data x model mesh over the job's devices")
     return p
 
 
@@ -226,24 +262,59 @@ def local_layout(n_devices, model_parallel, batch_size):
     return max(d for d in range(1, avail + 1) if batch_size % d == 0), m
 
 
-def data_axis(args):
-    """The data axis N / M of --num_processes N and --model_parallel M,
-    after the checks that the rules hold; SystemExit names the rule a
-    flag breaks."""
-    nproc, m = max(args.num_processes, 1), args.model_parallel
+def host_layout(n_hosts, local_devices, model_parallel, batch_size):
+    """(data, model) of a job of `n_hosts` calls of `local_devices` (G)
+    devices each, the JAX CLI's multi-host rule (`densecap_tpu/cli/
+    train.py`: the batch check after `initialize`, and the `if nproc > 1`
+    branch of the mesh): the mesh spans all N x G devices, so data = N x G
+    // M with no partial mesh; M must divide N x G, the data axis must
+    divide evenly across the N hosts and `--batch_size` must divide
+    across the hosts and be a multiple of the data axis. SystemExit names
+    the rule a flag breaks.
+
+    data % N == 0 is M dividing G: each host holds G / M whole model
+    groups, so the port's model groups of M consecutive global ranks
+    (`parallel/distributed.py:_build_groups`), h x G + r for r < G, never
+    span hosts."""
+    n, g, m = n_hosts, local_devices, model_parallel
     if m < 1:
         raise SystemExit(f"--model_parallel must be >= 1, got {m}")
-    if nproc % m:
+    if batch_size % n:
+        raise SystemExit(f"--batch_size {batch_size} must divide evenly "
+                         f"across {n} processes")
+    data = n * g // m
+    if data < 1 or (n * g) % m:
+        raise SystemExit(f"--model_parallel {m} does not divide the {n * g} "
+                         f"devices of {n} hosts x {g}")
+    if data % n:
+        raise SystemExit(f"data axis {data} must divide evenly across {n} "
+                         f"processes: --model_parallel {m} must divide each "
+                         f"host's {g} devices")
+    if batch_size % data:
+        raise SystemExit(f"multi-host runs use ALL devices: --batch_size "
+                         f"{batch_size} must be a multiple of the data axis "
+                         f"{data}")
+    return data, m
+
+
+def data_axis(world, model_parallel, batch_size):
+    """The data axis W / M of a world of W ranks (one process each) and
+    --model_parallel M, after the checks that the rank rule holds;
+    SystemExit names the rule a flag breaks."""
+    m = model_parallel
+    if m < 1:
+        raise SystemExit(f"--model_parallel must be >= 1, got {m}")
+    if world % m:
         raise SystemExit(f"--model_parallel {m} must divide --num_processes "
-                         f"{nproc}")
-    data = nproc // m
-    if args.batch_size % data:
+                         f"{world}")
+    data = world // m
+    if batch_size % data:
         if m == 1:
-            raise SystemExit(f"--batch_size {args.batch_size} must divide "
-                             f"evenly across {nproc} processes")
-        raise SystemExit(f"--batch_size {args.batch_size} must be a multiple "
-                         f"of the data axis {data} (--num_processes {nproc} "
-                         f"/ --model_parallel {m})")
+            raise SystemExit(f"--batch_size {batch_size} must divide evenly "
+                             f"across {world} processes")
+        raise SystemExit(f"--batch_size {batch_size} must be a multiple of "
+                         f"the data axis {data} (--num_processes {world} / "
+                         f"--model_parallel {m})")
     return data
 
 
@@ -257,45 +328,86 @@ def local_devices(device):
 
 
 def main(argv=None, devices=None, backend=None, command=None):
-    """The CLI. An explicit --num_processes runs this process as one
-    rank; otherwise the call lays its mesh over `devices` (default
-    `local_devices`) and either trains here or starts its ranks
-    (`parallel.launch.launch` with `backend` and `command`: the tests
-    start CPU ranks over gloo with a body of their own, chip_smoke.py two
-    gloo ranks on cuda:0)."""
+    """The CLI. A process that `parallel.launch` started trains as the
+    rank it was given. Otherwise the call lays its mesh over `devices`
+    (default `local_devices`), alone on its host (`local_layout`) or as
+    host --process_id of --num_processes (`host_layout`), and either
+    trains here (one device, alone or at a file:// store) or starts its
+    ranks (`parallel.launch.launch`
+    with `backend` and `command`: the tests start CPU ranks over gloo with
+    a body of their own, chip_smoke.py gloo ranks on cuda:0)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
-    if args.num_processes > 1:
-        _run(args, distributed.rank_device(resolve_device(args.device),
-                                           args.process_id))
+    rank = distributed.launched()
+    if rank is not None:
+        (device, args.process_id, args.num_processes,
+         args.coordinator_address) = rank
+        _run(args, device, store=launch.rank_store(args.coordinator_address))
         return
     device = resolve_device(args.device)
     devices = local_devices(device) if devices is None else list(devices)
-    data, model = local_layout(len(devices), args.model_parallel,
-                               args.batch_size)
-    print(f"mesh: data={data} model={model}", flush=True)
-    if data * model == 1:
-        _run(args, torch.device(devices[0]))
-        return
-    code = launch.launch(argv, devices[:data * model], backend=backend,
-                         command=command)
+    hosts = max(args.num_processes, 1)
+    if hosts == 1:
+        data, model = local_layout(len(devices), args.model_parallel,
+                                   args.batch_size)
+        print(f"mesh: data={data} model={model}", flush=True)
+        if data * model == 1:
+            _run(args, torch.device(devices[0]))
+            return
+        code = launch.launch(argv, devices[:data * model], backend=backend,
+                             command=command)
+    else:
+        if len(devices) == 1 and not launch.tcp_address(
+                args.coordinator_address):  # one rank at a file:// store
+            _run(args, torch.device(devices[0]))
+            return
+        job = launch.HostJob(args.coordinator_address, args.process_id,
+                             hosts)
+        job.meet(len(devices))
+        if len(devices) > 1:
+            data, model = host_layout(hosts, len(devices),
+                                      args.model_parallel, args.batch_size)
+            print(f"mesh: data={data} model={model}", flush=True)
+        code = launch.launch(argv, devices, backend=backend, command=command,
+                             job=job)
     if code:
         raise SystemExit(code)
 
 
-def _run(args, device):
-    """Train in this process: a single-process run, or one rank of
-    --num_processes."""
+def _run(args, device, store=None):
+    """Train in this process: a single-process run, or rank --process_id
+    of --num_processes (meeting in `store`, when given, else at
+    --coordinator_address)."""
     nproc = max(args.num_processes, 1)
-    local_batch_size = args.batch_size // data_axis(args)
+    local_batch_size = args.batch_size // data_axis(
+        nproc, args.model_parallel, args.batch_size)
     rank = args.process_id if nproc > 1 else 0
     with contextlib.ExitStack() as stack:
         distributed.initialize(
             coordinator_address=args.coordinator_address or None,
             num_processes=nproc if nproc > 1 else None, process_id=rank,
-            device=device, model_parallel=args.model_parallel)
+            device=device, model_parallel=args.model_parallel, store=store)
         stack.callback(distributed.shutdown)
         _train(args, device, nproc, local_batch_size, stack)
+
+
+def train_source(args, loader, open_loader, data_rank, data_size,
+                 local_batch_size):
+    """The zero-argument callable that yields this rank's training
+    batches: slot `data_rank` of `data_size` (its round-robin shard of the
+    split, opened by `open_loader(shard=...)`, `local_batch_size` at a
+    time; with --canvas_buckets its slice of the global batch from the
+    bucket schedule that every rank runs over the unsharded `loader`)."""
+    shard = (data_rank, data_size) if data_size > 1 else None
+    if args.canvas_buckets:
+        buckets = [tuple(int(v) for v in b.split("x"))
+                   for b in args.canvas_buckets.split(",") if b]
+        bucketed = BucketedLoader(
+            loader, buckets, args.batch_size if shard else local_batch_size,
+            split=0, shard=shard)
+        return lambda: bucketed.next_batch()[1]
+    train_loader = open_loader(shard=shard) if shard else loader
+    return lambda: train_loader.get_batch(local_batch_size, 0)
 
 
 def _train(args, device, nproc, local_batch_size, stack):
@@ -368,19 +480,8 @@ def _train(args, device, nproc, local_batch_size, stack):
     data_rank, data_size = distributed.data_rank(), distributed.data_size()
     generator = torch.Generator(device=device).manual_seed(
         args.seed + 1 + data_rank)
-    shard = (data_rank, data_size) if data_size > 1 else None
-    if args.canvas_buckets:
-        buckets = [tuple(int(v) for v in b.split("x"))
-                   for b in args.canvas_buckets.split(",") if b]
-        # under several processes every rank runs the same schedule over
-        # the unsharded split and loads its slice of the global batch
-        bucketed = BucketedLoader(
-            loader, buckets, args.batch_size if shard else local_batch_size,
-            split=0, shard=shard)
-        prefetch = PrefetchingLoader(source=lambda: bucketed.next_batch()[1])
-    else:
-        train_loader = open_loader(shard=shard) if shard else loader
-        prefetch = PrefetchingLoader(train_loader, local_batch_size, split=0)
+    prefetch = PrefetchingLoader(source=train_source(
+        args, loader, open_loader, data_rank, data_size, local_batch_size))
     stack.callback(prefetch.close)
     tracing = contextlib.ExitStack()
     stack.callback(tracing.close)

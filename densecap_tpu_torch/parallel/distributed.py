@@ -2,12 +2,15 @@
 
 One departure from the JAX package: JAX runs one process per host, over
 all of that host's devices through its mesh; the port runs one process
-per GPU, the torch idiom. Each process is a rank of the default
-`torch.distributed` group (NCCL between GPUs, gloo on the CPU), loads its
-own slice of the global batch (the loader's round-robin `shard`, or the
-bucketed loader's shard mode) and builds its `Trainer` after `initialize`:
-a Trainer built while the group is up all-reduces the gradients. The JAX `global_batch_from_local` has no
-counterpart: each rank keeps its local slice.
+per GPU, the torch idiom. A job of N host calls of G devices each
+(`cli/train.py`) is N x G processes: host h's call starts its G ranks
+(`parallel/launch.py`) as global ranks h x G + r. Each process is a rank
+of the default `torch.distributed` group (NCCL between GPUs, gloo on the
+CPU), loads its own slice of the global batch (the loader's round-robin
+`shard`, or the bucketed loader's shard mode) and builds its `Trainer`
+after `initialize`: a Trainer built while the group is up all-reduces
+the gradients. The JAX `global_batch_from_local` has no counterpart:
+each rank keeps its local slice.
 
 Tensor parallelism (`--model_parallel M`, the JAX mesh's `'model'` axis)
 splits the world into model groups of M consecutive ranks: rank r sits
@@ -23,9 +26,10 @@ Single-process runs form no group: `initialize` returns False and the
 helpers below answer as rank 0 of 1, model rank 0 of 1 and data rank 0
 of 1.
 
-A rank started by `parallel.launch` finds its device and backend in its
-environment (`DEVICE_ENV`, `BACKEND_ENV`, which only the launcher sets):
-`rank_device` and `initialize` take them over their own defaults.
+A rank started by `parallel.launch` finds its device, backend, global
+rank, world size and store in its environment (the `*_ENV` names below,
+which only the launcher sets; `launched` reads them); `initialize`
+takes the backend over its own default.
 """
 
 from __future__ import annotations
@@ -46,27 +50,29 @@ TIMEOUT = datetime.timedelta(minutes=60)
 _groups = {}
 
 # What `parallel.launch` tells each rank it starts: its device (e.g.
-# "cuda:1", "cpu") and the group's backend ("nccl", "gloo").
+# "cuda:1", "cpu"), the group's backend ("nccl", "gloo"), its global
+# rank, the world size and where the group meets (a file:// or tcp://
+# URL; a tcp:// store is served by host 0's call, and the ranks connect
+# to it as clients).
 DEVICE_ENV = "DENSECAP_TORCH_RANK_DEVICE"
 BACKEND_ENV = "DENSECAP_TORCH_RANK_BACKEND"
+RANK_ENV = "DENSECAP_TORCH_RANK"
+WORLD_ENV = "DENSECAP_TORCH_WORLD"
+STORE_ENV = "DENSECAP_TORCH_STORE"
 
 
-def rank_device(device, process_id=0):
-    """The device of rank `process_id`: the one its launcher chose
-    (`DEVICE_ENV`), else cuda:{process_id % device count} for a CUDA
-    device that names no index, else `device` as given."""
-    if os.environ.get(DEVICE_ENV):
-        return torch.device(os.environ[DEVICE_ENV])
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda",
-                            process_id % max(torch.cuda.device_count(), 1))
-    return device
+def launched():
+    """(device, global rank, world size, store URL) that `parallel.launch`
+    gave this process, or None for a process it did not start."""
+    if not os.environ.get(RANK_ENV):
+        return None
+    return (torch.device(os.environ[DEVICE_ENV]), int(os.environ[RANK_ENV]),
+            int(os.environ[WORLD_ENV]), os.environ[STORE_ENV])
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
                init_method=None, device="cpu", backend=None,
-               model_parallel=1):
+               model_parallel=1, store=None):
     """Join this process to the job as rank `process_id` of
     `num_processes`. Returns True when a group was formed, False for a
     single-process run (num_processes None).
@@ -76,14 +82,15 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
 
     The group meets at `init_method` (a `tcp://` or `file://` URL), or at
     `coordinator_address`: "host:port" of rank 0 becomes tcp://host:port,
-    and a URL is taken as it is. backend: the launcher's
+    and a URL is taken as it is; or in `store`, a `torch.distributed`
+    store the caller has joined already. backend: the launcher's
     (`BACKEND_ENV`), else NCCL for a CUDA `device` and gloo for the CPU,
     unless given.
     """
     if num_processes is None:
         return False
     device = torch.device(device)
-    if init_method is None:
+    if store is None and init_method is None:
         if not coordinator_address:
             raise ValueError("a multi-process run needs a coordinator "
                              "address or an init method")
@@ -94,8 +101,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
             "nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method,
-                            world_size=int(num_processes),
+    meet = {"store": store} if store is not None else {
+        "init_method": init_method}
+    dist.init_process_group(backend, **meet, world_size=int(num_processes),
                             rank=int(process_id or 0), timeout=TIMEOUT)
     if model_parallel > 1:
         _build_groups(int(model_parallel))

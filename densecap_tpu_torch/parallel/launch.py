@@ -1,32 +1,52 @@
-"""Start the ranks of one train call on this host.
+"""Start the ranks of one train call on this host, alone or as one host of
+a job of several.
 
-The JAX train CLI meshes all its local devices in one process; the port
-runs one process per device (`parallel/distributed.py`). So a single
-`cli.train` call that lays out more than one device starts its ranks
-here: `launch(argv, devices)` runs len(devices) fresh interpreters
-(`subprocess`, never `fork`: CUDA does not survive a fork), rank r as
+The JAX train CLI meshes all its local devices in one process, one
+process per host; the port runs one process per device
+(`parallel/distributed.py`). So a `cli.train` call that lays out more
+than one device, or any host call of a job that meets over TCP, starts
+its ranks here: `launch(argv, devices)` runs
+len(devices) = G fresh interpreters (`subprocess`, never `fork`: CUDA
+does not survive a fork), each as
 
-    <command> <argv> --num_processes N --process_id r \\
-        --coordinator_address file://<tmp>/store
+    <command> <argv>
 
-with `devices[r]` and the backend in its environment
-(`distributed.DEVICE_ENV`, `distributed.BACKEND_ENV`). Each rank is then
-exactly the explicit multi-process path of the same flags. The ranks
-meet at a `file://` store in a temporary directory that is removed when
-they have ended, so no TCP port is picked and raced for. The caller
-touches no GPU, so rank 0 has its device to itself.
+with its device, the backend, its global rank, the world size and the
+store the ranks meet at in its environment (`distributed.DEVICE_ENV`,
+`BACKEND_ENV`, `RANK_ENV`, `WORLD_ENV`, `STORE_ENV`; `cli.train` reads
+them through `distributed.launched` before its flags). The caller touches
+no GPU, so each rank has its device to itself.
 
-Rank 0's stdout is the caller's; the other ranks' goes nowhere (they
-print nothing on the explicit path either). Every rank's stderr is the
-caller's. The first rank to exit non-zero ends the others, and its code
-is the call's. SIGINT, SIGTERM and SIGHUP sent to the caller go to every
-rank; the call then ends them all and returns 128 + the signal's number.
-Each rank runs in a session of its own, so a terminal's Ctrl-C reaches it
-once, through the caller, and ending a rank ends its process group (a
-compiler it started, say) with it. On Linux each rank also gets SIGKILL
-when the caller dies, so a caller killed outright, by SIGKILL or with
-its process group, leaves no rank holding its device: a rank starts as
-a small bootstrap (`ARM`) that sets its parent-death signal (`prctl`)
+Alone on its host (`job=None`), the call's ranks are ranks 0..G-1 of G
+and meet at a `file://` store in a temporary directory that is removed
+when they have ended, so no TCP port is picked and raced for.
+
+One host of N (`job`, a `HostJob`): the job's N calls meet first at the
+coordinator's TCP store, which host 0's call serves, as JAX's process 0
+serves its coordinator; every call must lay out the same G (a mismatch
+ends every call, naming the rule, as soon as all have met), and a call
+whose peers do not all arrive within RENDEZVOUS_S exits non-zero. Host
+h's ranks are then global ranks h x G + r of N x G and connect to that
+store as clients. While they run, each call beats in the store every
+JOB_POLL_S and reads it: when a rank fails on one host (or its call gets
+a signal), its call leaves word there and the calls of the other hosts
+end their ranks and exit 1 within JOB_POLL_S plus the time `_end` takes
+(at most 2 x GRACE_S); so do they when a host's beat stops for
+HEARTBEAT_S (its call was killed outright) or when the store is gone
+(host 0's call ended). A call whose ranks all exit 0 says so; host 0's
+call, which serves the store, returns only once every host has.
+
+Global rank 0's stdout is the caller's; the other ranks' goes nowhere
+(they print nothing on the explicit path either). Every rank's stderr is
+the caller's. The first rank to exit non-zero ends the others, and its
+code is the call's. SIGINT, SIGTERM and SIGHUP sent to the caller go to
+every rank; the call then ends them all and returns 128 + the signal's
+number. Each rank runs in a session of its own, so a terminal's Ctrl-C
+reaches it once, through the caller, and ending a rank ends its process
+group (a compiler it started, say) with it. On Linux each rank also gets
+SIGKILL when the caller dies, so a caller killed outright, by SIGKILL or
+with its process group, leaves no rank holding its device: a rank starts
+as a small bootstrap (`ARM`) that sets its parent-death signal (`prctl`)
 and then execs the rank's command, which keeps the signal armed. No
 Python runs between the fork and an exec, so a caller with threads
 (CUDA's, say) cannot deadlock its child.
@@ -34,6 +54,7 @@ Python runs between the fork and an exec, so a caller with threads
 
 from __future__ import annotations
 
+import datetime
 import os
 import shutil
 import signal
@@ -43,12 +64,25 @@ import tempfile
 import threading
 import time
 
-from .distributed import BACKEND_ENV, DEVICE_ENV
+import torch.distributed as dist
+
+from .distributed import (BACKEND_ENV, DEVICE_ENV, RANK_ENV, STORE_ENV,
+                          WORLD_ENV)
 
 # How long the ranks have to exit on a forwarded signal, and then on
 # SIGTERM, before SIGKILL.
 GRACE_S = 10.0
 POLL_S = 0.1
+# How long a host call waits for every host of its job at the coordinator
+# (jax.distributed.initialize's default initialization_timeout), also the
+# timeout of each request to the job's store.
+RENDEZVOUS_S = 300.0
+# How often a host call beats and reads the job's store, and how long a
+# peer's beat may stand still before that host counts as lost.
+JOB_POLL_S = 1.0
+HEARTBEAT_S = 60.0
+# The ranks of a job meet under this prefix of its store.
+RANKS_PREFIX = "ranks"
 SIGNALS = (signal.SIGINT, signal.SIGTERM, signal.SIGHUP)
 # argv: the caller's pid, then the rank's command. prctl option 1 is
 # PR_SET_PDEATHSIG; a caller that died before it was set is checked after.
@@ -68,16 +102,125 @@ def default_command():
     return [sys.executable, "-m", "densecap_tpu_torch.cli.train"]
 
 
-def rank_args(argv, world, rank, init_method):
-    """The flags of rank `rank`: the call's, then the explicit
-    multi-process path's (the later flag wins under argparse)."""
-    return list(argv) + ["--num_processes", str(world), "--process_id",
-                         str(rank), "--coordinator_address", init_method]
+def tcp_address(coordinator):
+    """"host:port" or "tcp://host:port" -> (host, port); None for
+    anything else (a file:// URL, or nothing)."""
+    addr = coordinator[len("tcp://"):] if coordinator.startswith(
+        "tcp://") else coordinator
+    name, sep, port = addr.rpartition(":")
+    if "://" in addr or not sep or not port.isdigit():
+        return None
+    return name, int(port)
 
 
-def rank_env(device, backend):
+def _timeout():
+    return datetime.timedelta(seconds=RENDEZVOUS_S)
+
+
+def rank_store(url):
+    """The store a launched rank meets its group at: None for a file://
+    URL (`distributed.initialize` opens it), else a client of the job's
+    TCP store, under the ranks' prefix."""
+    address = tcp_address(url)
+    if address is None:
+        return None
+    return dist.PrefixStore(RANKS_PREFIX, dist.TCPStore(
+        *address, is_master=False, timeout=_timeout()))
+
+
+class HostJob:
+    """This call's place in a job of `hosts` host calls: the job's TCP
+    store at the coordinator (host 0's call serves it, the others are
+    its clients), where the calls meet, beat, and leave word of a failure
+    or of their end."""
+
+    def __init__(self, coordinator, host, hosts):
+        address = tcp_address(coordinator)
+        if address is None:
+            raise SystemExit(
+                f"--coordinator_address {coordinator!r}: a job of several "
+                "hosts meets at a TCP store, host:port of process 0")
+        if not 0 <= host < hosts:
+            raise SystemExit(f"--process_id {host} is not a host of "
+                             f"--num_processes {hosts}")
+        self.host, self.hosts = host, hosts
+        self.url = "tcp://%s:%d" % address
+        try:
+            self.store = dist.TCPStore(*address, is_master=host == 0,
+                                       timeout=_timeout(),
+                                       wait_for_workers=False)
+        except dist.DistError as e:
+            raise SystemExit(f"host {host}: no store at {self.url} within "
+                             f"{RENDEZVOUS_S:g} s: {e}") from None
+        self._beats = {}  # host -> (its beat, when it last moved)
+
+    def meet(self, n_devices):
+        """Wait up to RENDEZVOUS_S for every host, and check that all lay
+        out `n_devices`; SystemExit on either. -> the world, N x G."""
+        keys = [f"devices/{h}" for h in range(self.hosts)]
+        try:
+            self.store.set(keys[self.host], str(n_devices))
+            self.store.wait(keys)
+            counts = [int(self.store.get(k)) for k in keys]
+            self.store.set(f"met/{self.host}", "1")
+            if self.host == 0:  # the others read before the store can close
+                self.store.wait([f"met/{h}" for h in range(self.hosts)])
+        except dist.DistError as e:
+            raise SystemExit(
+                f"host {self.host}: the job's {self.hosts} hosts did not all "
+                f"meet at {self.url} within {RENDEZVOUS_S:g} s: {e}") from None
+        if len(set(counts)) > 1:
+            raise SystemExit(
+                "every host of a job must lay out the same number of "
+                "devices (the mesh spans all of them, each host holding an "
+                f"equal slice): hosts 0..{self.hosts - 1} lay out {counts}")
+        return self.hosts * n_devices
+
+    def fail(self, why):
+        """Leave word for the other hosts that this one failed (the first
+        word stays)."""
+        try:
+            self.store.compare_set("failed", "", why)
+        except dist.DistError:  # the store is gone: the others see that
+            pass
+
+    def done(self):
+        """Say that this host's ranks all exited 0."""
+        try:
+            self.store.set(f"done/{self.host}", "1")
+        except dist.DistError:  # host 0 ended: nothing waits for the word
+            pass
+
+    def all_done(self):
+        return self.store.check([f"done/{h}" for h in range(self.hosts)])
+
+    def watch(self):
+        """Beat, and -> why the job failed elsewhere, or None while it
+        runs: a host left word, a host that is not done stopped beating
+        for HEARTBEAT_S, or the store is gone."""
+        try:
+            self.store.add(f"beat/{self.host}", 1)
+            if self.store.check(["failed"]):
+                return self.store.get("failed").decode()
+            now = time.monotonic()
+            for h in range(self.hosts):
+                if h == self.host or self.store.check([f"done/{h}"]):
+                    continue
+                beat = self.store.add(f"beat/{h}", 0)
+                last = self._beats.get(h)
+                if last is None or last[0] != beat:
+                    self._beats[h] = (beat, now)
+                elif now - last[1] > HEARTBEAT_S:
+                    return f"host {h} stopped beating for {HEARTBEAT_S:g} s"
+        except dist.DistError as e:
+            return f"lost the job's store at {self.url}: {e}"
+        return None
+
+
+def rank_env(device, backend, rank, world, store):
     env = dict(os.environ)
-    env[DEVICE_ENV], env[BACKEND_ENV] = str(device), backend
+    env.update({DEVICE_ENV: str(device), BACKEND_ENV: backend,
+                RANK_ENV: str(rank), WORLD_ENV: str(world), STORE_ENV: store})
     env["PYTHONPATH"] = os.pathsep.join(
         [_ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                    if p])
@@ -120,20 +263,23 @@ def _end(procs, patient):
         p.wait()
 
 
-def launch(argv, devices, backend=None, command=None):
+def launch(argv, devices, backend=None, command=None, job=None):
     """Run one rank per entry of `devices` (torch device names; one may
     repeat, as two gloo ranks share cuda:0) with the flags `argv`, and
     wait for them. backend: the group's, by default NCCL when every
     device is a GPU and gloo otherwise. command: what each rank runs
     before its flags (default: `python -m densecap_tpu_torch.cli.train`;
-    a test passes its own body). -> 0 when every rank exits 0, else the
-    first non-zero exit code (128 + n for a rank ended by signal n, or
-    for the call when it got one)."""
+    a test passes its own body). job: this call's `HostJob`, after `meet`,
+    in a job of several hosts; None alone. -> 0 when every rank exits 0
+    (and, on host 0, every host's did), else the first non-zero exit code
+    (128 + n for a rank ended by signal n, or for the call when it got
+    one), or 1 when another host failed."""
     devices = [str(d) for d in devices]
     if backend is None:
         backend = ("nccl" if all(d.startswith("cuda") for d in devices)
                    else "gloo")
     command = list(command or default_command())
+    host, hosts = (job.host, job.hosts) if job else (0, 1)
     procs, received = [], []
 
     def forward(signum, frame):
@@ -145,30 +291,55 @@ def launch(argv, devices, backend=None, command=None):
     handlers = {}
     if threading.current_thread() is threading.main_thread():
         handlers = {s: signal.signal(s, forward) for s in SIGNALS}
-    tmp = tempfile.mkdtemp(prefix="densecap_launch_")
+    tmp = None if job else tempfile.mkdtemp(prefix="densecap_launch_")
     try:
-        init_method = f"file://{tmp}/store"
+        store = job.url if job else f"file://{tmp}/store"
+        first = host * len(devices)
         for r, device in enumerate(devices):
             if received:
                 break
             procs.append(subprocess.Popen(
-                _armed(command + rank_args(argv, len(devices), r,
-                                           init_method)),
-                env=rank_env(device, backend),
-                stdout=None if r == 0 else subprocess.DEVNULL,
+                _armed(command + list(argv)),
+                env=rank_env(device, backend, first + r,
+                             hosts * len(devices), store),
+                stdout=None if first + r == 0 else subprocess.DEVNULL,
                 start_new_session=True))
-        code = 0
-        while not received and not code:
+        code, why, ended, watch_at = 0, None, False, 0.0
+        while not received:
             codes = [p.poll() for p in procs]
             code = next((c for c in codes if c), 0)
-            if all(c is not None for c in codes):
+            if code:
                 break
+            if not ended and all(c is not None for c in codes):
+                ended = True
+                if job is None:
+                    break
+                job.done()
+                if host:
+                    break
+            if ended and job.all_done():
+                break
+            if job and time.monotonic() >= watch_at:
+                why = job.watch()
+                if why:
+                    break
+                watch_at = time.monotonic() + JOB_POLL_S
             time.sleep(POLL_S)
         if received:
             code = -received[0]
-        return 128 - code if code < 0 else code
+        code = 128 - code if code < 0 else code
+        if job and code:
+            job.fail(f"host {host}: " + (
+                f"got signal {received[0]}" if received else
+                f"a rank exited {code}"))
+        elif why and not code:
+            print(f"host {host}: ending its ranks: {why}", file=sys.stderr,
+                  flush=True)
+            code = 1
+        return code
     finally:
         _end(procs, patient=bool(received))
         for s, h in handlers.items():
             signal.signal(s, h)
-        shutil.rmtree(tmp, ignore_errors=True)
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)

@@ -75,7 +75,8 @@ TIMEOUT_S = 900  # per CLI command
 
 # Written into a directory on the ranks' PYTHONPATH: at exit, a process
 # that ran the CLI (`python -m densecap_tpu_torch.cli.train`) writes
-# whether it touched CUDA, its device, peak memory and kernel launches.
+# the global rank its launcher gave it, whether it touched CUDA, its
+# device, peak memory and kernel launches.
 PROBE = '''import atexit, json, os, sys
 
 
@@ -87,6 +88,7 @@ def _dump():
             "densecap_tpu_torch.cli.train"):
         return  # not a `python -m densecap_tpu_torch.cli.train` process
     rec = {"pid": os.getpid(), "argv": sys.argv[1:],
+           "rank": os.environ.get("DENSECAP_TORCH_RANK"),
            "cuda_initialized": torch.cuda.is_initialized()}
     if rec["cuda_initialized"]:
         dev = torch.cuda.current_device()
@@ -166,10 +168,16 @@ def read_records(records):
     return [json.loads(f.read_text()) for f in sorted(records.iterdir())]
 
 
-def rank_of(argv):
-    """The rank a train CLI process ran as: its last --process_id, or
-    None without one."""
-    if "--process_id" not in argv:
+def rank_of(rec):
+    """The global rank a train CLI process ran as, from its probe record:
+    the one its launcher gave it, or the last --process_id of a one-device
+    call that trained on a card (an explicit rank). None for a process
+    with neither: one that trained alone as rank 0, or a call that
+    launched ranks (it touches no card)."""
+    if rec.get("rank") is not None:
+        return int(rec["rank"])
+    argv = rec["argv"]
+    if not rec["cuda_initialized"] or "--process_id" not in argv:
         return None
     return int(argv[len(argv) - argv[::-1].index("--process_id")])
 
@@ -195,12 +203,12 @@ def run_cli(tag, flags, visible, out_dir, probe_dir):
 
 def per_rank(procs):
     """The probe records -> ({rank: device, visible, peak GiB, launches},
-    whether a launching call touched CUDA). A launched rank carries
-    --process_id; without one, the process trained alone as rank 0, or
-    was the call that launched the ranks."""
+    whether a launching call touched CUDA). A process without a rank
+    (`rank_of`) trained alone as rank 0, or was a call that launched
+    ranks."""
     ranks, parents = {}, []
     for rec in procs:
-        r = rank_of(rec["argv"])
+        r = rank_of(rec)
         if r is None:
             parents.append(rec)
             r = 0
@@ -212,6 +220,95 @@ def per_rank(procs):
     launched = len(parents) < len(procs)
     return (dict(sorted(ranks.items())),
             launched and any(p["cuda_initialized"] for p in parents))
+
+
+def history(prefix):
+    with open(f"{prefix}.json") as f:
+        return json.load(f)
+
+
+def mesh_line(stdout):
+    return next((ln for ln in stdout.splitlines()
+                 if ln.startswith("mesh:")), None)
+
+
+def physical(rank):
+    """A rank's GPU on the machine: its device index, mapped through the
+    CUDA_VISIBLE_DEVICES its process saw."""
+    index = int(rank["device"].split(":")[1])
+    return int(rank["visible"].split(",")[index]) if rank["visible"] else (
+        index)
+
+
+def check_run(tag, rec, procs, stdout, prefix, batch_size, n_iters, world,
+              failures):
+    """A timed run that exited 0: fill `rec` with its readings (per rank
+    from the probe records `procs`; ms/step and images/s from global rank
+    0's `stdout`; the val and losses from its history at `prefix`), and
+    add to `failures` what it breaks: ranks 0 .. world - 1, rank r on
+    physical GPU r; no launching call on a GPU; K2 and K2b on every rank,
+    K1 on rank 0; the pair written; finite losses and mAP."""
+    rec["ranks"], rec["parent_touched_cuda"] = per_rank(procs)
+    timing = timed_ms(stage_means(stdout, n_iters), WARMUP, n_iters)
+    hist = history(prefix)
+    losses = {int(k): v["total_loss"] for k, v in hist["loss_history"].items()}
+    rec.update(timing, images_per_s=batch_size * 1e3 / timing["ms_per_step"],
+               val=hist["results_history"][str(n_iters)], total_loss=losses,
+               pair=os.path.exists(f"{prefix}.npz"))
+    ranks = rec["ranks"]
+    if (sorted(ranks) != list(range(world))
+            or [physical(ranks[r]) for r in sorted(ranks)]
+            != list(range(world))):
+        failures.append(f"{tag}: ranks on {ranks}")
+    if rec["parent_touched_cuda"]:
+        failures.append(f"{tag}: a launching call touched a GPU")
+    for r, rr in ranks.items():
+        if not (rr["launches"]["roi_align"]
+                and rr["launches"]["roi_align_bwd"]):
+            failures.append(f"{tag}: rank {r} never ran K2 / K2b")
+    if not (ranks.get(0, {}).get("launches", {}).get("nms") and rec["pair"]
+            and all(map(math.isfinite, losses.values()))
+            and math.isfinite(rec["val"]["map"])):
+        failures.append(f"{tag}: no K1 in rank 0's eval, no pair, or a "
+                        "non-finite loss or mAP")
+    print(f"[{tag}] {rec['mesh']}: {timing['ms_per_step']:.3f} ms/step "
+          f"(data {timing['data_ms']:.3f} + step {timing['step_ms']:.3f}, "
+          f"steps {timing['from_step']}-{n_iters}) = "
+          f"{rec['images_per_s']:.2f} images/s; val mAP {rec['val']['map']}"
+          f"; ranks {json.dumps(ranks)}; {rec['wall_s']:.1f} s", flush=True)
+
+
+def resume_flags(prefix, writer, n_iters):
+    """Resume the pair at `writer`, written at iteration n_iters, for one
+    step at rate 0 into `prefix`."""
+    return ["--max_iters", str(n_iters + 1), "--checkpoint_path",
+            str(prefix), "--checkpoint_start_from", str(writer),
+            "--learning_rate", "0", "--losses_log_every", "1"]
+
+
+def check_resume(tag, rec, procs, stdout, prefix, writer, want, n_iters,
+                 failures):
+    """A resume run (`resume_flags`) that exited 0: fill `rec`, and add
+    it to `failures` unless rank 0's val mAP equals the writer's `want`
+    to MAP_TOL, the history goes on at n_iters + 1 with a finite loss,
+    and the CLI said it resumed."""
+    hist = history(prefix)
+    got = hist["results_history"][str(n_iters + 1)]["map"]
+    first = hist["loss_history"].get(str(n_iters + 1), {})
+    rec.update(mesh=mesh_line(stdout), map=got, writer_map=want,
+               map_err=abs(got - want),
+               iterations=sorted(map(int, hist["loss_history"])),
+               first_total_loss=first.get("total_loss"),
+               ranks=per_rank(procs)[0])
+    ok = (rec["map_err"] <= MAP_TOL and rec["iterations"] == [n_iters + 1]
+          and math.isfinite(first.get("total_loss", math.nan))
+          and f"resumed from {writer} at iteration {n_iters}" in stdout)
+    if not ok:
+        failures.append(f"{tag}: {rec}")
+    print(f"[{tag}] {rec['mesh']}: val mAP {got} against the writer's "
+          f"{want} (|diff| {rec['map_err']:.3e}, tol {MAP_TOL}); first "
+          f"loss at {n_iters + 1}: {rec['first_total_loss']}; ok={ok}",
+          flush=True)
 
 
 def main(argv=None):
@@ -261,10 +358,6 @@ def main(argv=None):
                                    args.batch_size)
         return f"mesh: data={data} model={model}"
 
-    def history(prefix):
-        with open(f"{prefix}.json") as f:
-            return json.load(f)
-
     for name in args.layouts.split(","):
         flags, visible = LAYOUTS[name]
         prefix = work / name / "densecap"
@@ -272,47 +365,18 @@ def main(argv=None):
             name, base + flags + ["--max_iters", str(n_iters),
                                   "--checkpoint_path", str(prefix)],
             visible, out_dir, probe_dir)
-        rec = {"rc": rc, "wall_s": wall, "mesh": next(
-            (ln for ln in stdout.splitlines() if ln.startswith("mesh:")),
-            None), "expected_mesh": expect_mesh(name)}
+        rec = {"rc": rc, "wall_s": wall, "mesh": mesh_line(stdout),
+               "expected_mesh": expect_mesh(name)}
         layouts[name] = rec
         if rc != 0:
             failures.append(f"{name}: exit {rc}")
             print(f"[{name}] exit {rc}", flush=True)
             continue
-        rec["ranks"], rec["parent_touched_cuda"] = per_rank(procs)
-        timing = timed_ms(stage_means(stdout, n_iters), WARMUP, n_iters)
-        hist = history(prefix)
-        losses = {int(k): v["total_loss"]
-                  for k, v in hist["loss_history"].items()}
-        rec.update(timing, images_per_s=args.batch_size * 1e3
-                   / timing["ms_per_step"], val=hist["results_history"][
-                       str(n_iters)], total_loss=losses,
-                   pair=os.path.exists(f"{prefix}.npz"))
-        d, m = (int(v) for v in re.findall(r"\d+", rec["expected_mesh"]))
         if rec["mesh"] != rec["expected_mesh"]:
             failures.append(f"{name}: printed {rec['mesh']}")
-        if (sorted(rec["ranks"]) != list(range(d * m))
-                or any(rr["device"] != f"cuda:{r}"
-                       for r, rr in rec["ranks"].items())):
-            failures.append(f"{name}: ranks on {rec['ranks']}")
-        if rec["parent_touched_cuda"]:
-            failures.append(f"{name}: the launching call touched a GPU")
-        for r, rr in rec["ranks"].items():
-            if not (rr["launches"]["roi_align"]
-                    and rr["launches"]["roi_align_bwd"]):
-                failures.append(f"{name}: rank {r} never ran K2 / K2b")
-        if not (rec["ranks"].get(0, {}).get("launches", {}).get("nms")
-                and rec["pair"] and all(map(math.isfinite, losses.values()))
-                and math.isfinite(rec["val"]["map"])):
-            failures.append(f"{name}: no K1 in rank 0's eval, no pair, or "
-                            "a non-finite loss or mAP")
-        print(f"[{name}] {rec['mesh']}: {timing['ms_per_step']:.3f} ms/step "
-              f"(data {timing['data_ms']:.3f} + step {timing['step_ms']:.3f}"
-              f", steps {timing['from_step']}-{n_iters}) = "
-              f"{rec['images_per_s']:.2f} images/s; val mAP "
-              f"{rec['val']['map']}; ranks {json.dumps(rec['ranks'])}; "
-              f"{wall:.1f} s", flush=True)
+        d, m = (int(v) for v in re.findall(r"\d+", rec["expected_mesh"]))
+        check_run(name, rec, procs, stdout, prefix, args.batch_size,
+                  n_iters, d * m, failures)
 
     writer_name = args.layouts.split(",")[0]
     writer = work / writer_name / "densecap"
@@ -324,10 +388,7 @@ def main(argv=None):
         tag = f"resume_{name}"
         prefix = work / tag / "densecap"
         rc, stdout, procs, wall = run_cli(
-            tag, base + flags + [
-                "--max_iters", str(n_iters + 1), "--checkpoint_path",
-                str(prefix), "--checkpoint_start_from", str(writer),
-                "--learning_rate", "0", "--losses_log_every", "1"],
+            tag, base + flags + resume_flags(prefix, writer, n_iters),
             visible, out_dir, probe_dir)
         rec = {"rc": rc, "wall_s": wall}
         resumed[name] = rec
@@ -335,24 +396,8 @@ def main(argv=None):
             failures.append(f"{tag}: exit {rc}")
             print(f"[{tag}] exit {rc}", flush=True)
             continue
-        hist = history(prefix)
-        got = hist["results_history"][str(n_iters + 1)]["map"]
-        first = hist["loss_history"].get(str(n_iters + 1), {})
-        rec.update(mesh=next((ln for ln in stdout.splitlines()
-                              if ln.startswith("mesh:")), None),
-                   map=got, writer_map=want, map_err=abs(got - want),
-                   iterations=sorted(map(int, hist["loss_history"])),
-                   first_total_loss=first.get("total_loss"),
-                   ranks=per_rank(procs)[0])
-        ok = (rec["map_err"] <= MAP_TOL and rec["iterations"] == [n_iters + 1]
-              and math.isfinite(first.get("total_loss", math.nan))
-              and f"resumed from {writer} at iteration {n_iters}" in stdout)
-        if not ok:
-            failures.append(f"{tag}: {rec}")
-        print(f"[{tag}] {rec['mesh']}: val mAP {got} against the writer's "
-              f"{want} (|diff| {rec['map_err']:.3e}, tol {MAP_TOL}); first "
-              f"loss at {n_iters + 1}: {rec['first_total_loss']}; ok={ok}",
-              flush=True)
+        check_resume(tag, rec, procs, stdout, prefix, writer, want, n_iters,
+                     failures)
     if want is None and resume_at:
         failures.append(f"the writer {writer_name} wrote no pair")
 

@@ -202,14 +202,22 @@ def test_train_cli_two_processes(dataset, tmp_path):  # noqa: F811
     assert state["iter"] == 2 and state["count"] == 2
 
 
-def test_rank_device_and_single_process():
+def test_rank_device_and_single_process(monkeypatch):
     assert distributed.initialize(num_processes=None) is False
     assert (distributed.rank(), distributed.world_size()) == (0, 1)
     assert distributed.is_main_process()
     distributed.barrier()  # no group: returns at once
-    assert distributed.rank_device("cpu", 3) == torch.device("cpu")
-    assert distributed.rank_device("cuda:1", 3) == torch.device("cuda", 1)
-    assert distributed.rank_device("cuda", 0).type == "cuda"
+    # a rank's device, rank, world and store come from its launcher alone
+    for k in (distributed.DEVICE_ENV, distributed.RANK_ENV,
+              distributed.WORLD_ENV, distributed.STORE_ENV):
+        monkeypatch.delenv(k, raising=False)
+    assert distributed.launched() is None
+    monkeypatch.setenv(distributed.DEVICE_ENV, "cuda:1")
+    monkeypatch.setenv(distributed.RANK_ENV, "3")
+    monkeypatch.setenv(distributed.WORLD_ENV, "4")
+    monkeypatch.setenv(distributed.STORE_ENV, "tcp://127.0.0.1:29500")
+    assert distributed.launched() == (torch.device("cuda", 1), 3, 4,
+                                      "tcp://127.0.0.1:29500")
 
 
 def test_batch_must_divide_across_processes(dataset, tmp_path):  # noqa: F811

@@ -49,7 +49,8 @@ SCRIPTS = ["torch_synth_scenes", "torch_overfit_sanity",
            "torch_throughput_tune", "torch_serving_modes_bench",
            "torch_prenms_topk_check", "torch_beam_profile",
            "torch_beam_early_exit_bench", "torch_eval_scale_bench",
-           "torch_real_eval", "torch_train_cli_multigpu"]
+           "torch_real_eval", "torch_train_cli_multigpu",
+           "torch_train_cli_multihost"]
 
 
 @pytest.mark.parametrize("module", MODULES + [f"scripts/{m}" for m in SCRIPTS])

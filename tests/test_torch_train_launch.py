@@ -97,13 +97,19 @@ def test_local_layout_is_the_jax_rule(n_devices, model_parallel, batch_size):
     assert batch_size % data == 0 and data * model <= n_devices
 
 
+def explicit_flags(world, rank, init_method):
+    """The flags that make a one-device call rank `rank` of `world`."""
+    return ["--num_processes", str(world), "--process_id", str(rank),
+            "--coordinator_address", init_method]
+
+
 def _explicit(argv, tmp_path):
     """The explicit two-rank run of `argv`: the rank body with
     --num_processes 2, one process per rank, meeting at a file store."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK_BODY] + launch.rank_args(
-            argv, 2, r, f"file://{tmp_path}/store"),
+        [sys.executable, "-c", RANK_BODY] + argv + explicit_flags(
+            2, r, f"file://{tmp_path}/store"),
         cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(2)]
     return procs
@@ -188,9 +194,10 @@ def test_launched_ranks_match_the_explicit_run(dataset, tmp_path,  # noqa: F811
 
 
 # A rank body that fails: rank 0 starts a child and sleeps, rank 1 waits
-# until both pids are written and exits 3. argv[1] is the pid directory.
+# until both pids are written and exits 3. argv[1] is the pid directory;
+# the launcher gives the rank in the environment.
 FAILING_BODY = ("import os, subprocess, sys, time\n"
-                "r = sys.argv[sys.argv.index('--process_id') + 1]\n"
+                f"r = os.environ[{distributed.RANK_ENV!r}]\n"
                 "d = sys.argv[1]\n"
                 "def note(name, pid):\n"
                 "    with open(f'{d}/{name}.tmp', 'w') as f:\n"
