@@ -190,8 +190,11 @@ its result on its own line; any failure raises and exits non-zero:
      model=1` and launch nothing itself; each rank must launch K2 and
      K2b, rank 0 also K1 (its val eval), counted in each rank by
      scripts/torch_train_cli_multigpu.py's probe. Its loss and val
-     histories and pair must be bit-equal to the explicit two-rank run
-     of the same flags (`--device cuda:0 --num_processes 2`, gloo);
+     histories and pair must be bit-equal to the same two ranks started
+     by hand with the environment the launcher gives them (cuda:0,
+     gloo, rank r of 2, a file store, G = 2), the counterpart that JAX's
+     one-process feed feeds alike (two one-device calls would each read
+     a shard of the split);
  21. [multihost] (after 20, on the same VG, removed after) multi-host
      training as the JAX CLI runs it, both hosts on the one card: two
      host calls at once (`--num_processes 2 --process_id h`, a TCP
@@ -205,7 +208,21 @@ its result on its own line; any failure raises and exits non-zero:
      inputs at each shape (its train step's local batch of 4, which
      [launch] runs too) are held to plain afterwards as in 19
      ("multihost_shapes");
- 22. [tools] (after 21) the port's measurement scripts, each through its
+ 22. [cluster] (after 21, on the same VG) the JAX CLI's cluster-detected
+     start: two host calls under a stand-in SLURM job on 127.0.0.1
+     (SLURM_JOB_ID whose derived port is free, SLURM_NTASKS 2,
+     SLURM_PROCID h, SLURM_LOCALID 0), each with `--num_processes 2
+     --process_id h`, no coordinator and no devices given, so each
+     resolves the step's node at the derived port and its local rank's
+     GPU, [cuda:0], and starts its one rank (gloo) under the launcher.
+     Its loss and val histories and pair must be bit-equal to two
+     explicit one-device host calls (`--device cuda:0 --num_processes 2
+     --process_id h --coordinator_address 127.0.0.1:<port>`, no cluster
+     variables; N = 2 x G = 1 both, fed alike); each rank must launch K2
+     and K2b, global rank 0 also K1, and its captured K1 / K2 inputs are
+     held to plain as in 21 ("cluster_shapes"). It also prints how an
+     Open MPI stand-in (`OMPI_MCA_orte_hnp_uri`) resolves;
+ 23. [tools] (after 22) the port's measurement scripts, each through its
      `main` at a short setting (`TOOLS`): bench_torch.py 6 calls, the MFU
      count with 2 timed calls a program, both stage profilers at 2
      back-to-back calls a stage, the transfer probe at 5 copies a row,
@@ -226,13 +243,14 @@ its result on its own line; any failure raises and exits non-zero:
      oracle; each is timed alone, through the wrapper and plain, with
      its bound ("tools_shapes").
 
-Phases 7 (and its thin-frame part), 9-11 and 13-21 each drive their path
+Phases 7 (and its thin-frame part), 9-11 and 13-22 each drive their path
 with every launch count set to 0 just before and read just after; K1 and
 K2 must launch on each (in 16, with one replica and with two; in 21 on
 the inference tools and the runbook), and in 18 also K2b's d feats
-instance; in 21 the tune's train step must launch K2b and K3. So do
+instance; in 23 the tune's train step must launch K2b and K3. So do
 [train], [train buckets] and [tensor parallel]'s ranks, where K2, K2b
-and K3 must launch, and [launch]'s ranks, where K2 and K2b must.
+and K3 must launch, and [launch]'s, [multihost]'s and [cluster]'s
+ranks, where K2 and K2b must.
 
 The last lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}. Every kernel carries "ms", "plain_ms",
@@ -259,6 +277,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -287,7 +306,7 @@ from densecap_tpu_torch.ops import quant
 from densecap_tpu_torch.ops import roi_align as roi_mod
 from densecap_tpu_torch.ops.boxes import xcycwh_to_x1y1x2y2
 from densecap_tpu_torch.ops.cuda import build
-from densecap_tpu_torch.parallel import distributed
+from densecap_tpu_torch.parallel import distributed, launch
 from densecap_tpu_torch.parallel.mesh import gather_optimizer_state
 from densecap_tpu_torch.parallel.train_step import Trainer
 from densecap_tpu_torch.serve import daemon
@@ -3448,21 +3467,33 @@ def launched_run(dev, multi, prefix, env):
 
 
 def explicit_run(multi, prefix, env, store, timeout=600, world=2,
-                 extra=()):
+                 extra=(), local=None):
     """The explicit `world`-rank run of the same flags: `python -m
     densecap_tpu_torch.cli.train ... --device cuda:0 --num_processes
     <world> --process_id r`, one one-device call per rank on cuda:0,
     gloo through the launcher's environment variable (NCCL refuses two
-    ranks on one GPU). -> each rank's launch counts."""
-    rank_env = dict(os.environ, **env)
-    rank_env[distributed.BACKEND_ENV] = "gloo"
+    ranks on one GPU). With `local` (G), the ranks of world / G host
+    calls started by hand instead: the same command and flags with the
+    environment the launcher gives each (`launch.rank_env`: cuda:0,
+    gloo, global rank r, the world, the file store, G). -> each rank's
+    launch counts."""
+    def rank_env(r):
+        if local:
+            return dict(launch.rank_env("cuda:0", "gloo", r, world,
+                                        f"file://{store}", local), **env)
+        return dict(os.environ, **env, **{distributed.BACKEND_ENV: "gloo"})
+
+    def rank_flags(r):
+        return [] if local else [
+            "--num_processes", str(world), "--process_id", str(r),
+            "--coordinator_address", f"file://{store}"]
+
     procs = [subprocess.Popen(
         [sys.executable, "-m", "densecap_tpu_torch.cli.train"]
         + launch_flags(prefix, LAUNCH_STEPS, device="cuda:0") + list(extra)
-        + ["--num_processes", str(world), "--process_id", str(r),
-           "--coordinator_address", f"file://{store}"], cwd=str(ROOT),
-        env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
+        + rank_flags(r), cwd=str(ROOT), env=rank_env(r),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
     try:
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -3491,9 +3522,12 @@ def phase_launch(dev):
     and the pair): `cli.train.main` laying out two devices (cuda:0
     twice, gloo) starts two ranks, and must print `mesh: data=2 model=1`,
     launch nothing itself, and write the same loss and val histories and
-    a bit-equal pair as the explicit two-rank run of the same flags on
-    cuda:0. Every rank must launch K2 and K2b, rank 0's val eval K1.
-    -> ({path: launches}, summary)."""
+    a bit-equal pair as its two ranks started by hand with the
+    launcher's environment (`explicit_run(..., local=2)`; JAX's feed
+    hands the call's ranks halves of one batch of the whole split, where
+    two one-device calls would each read a shard). Every rank must
+    launch K2 and K2b, rank 0's val eval K1. -> ({path: launches},
+    summary)."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch_train_cli_multigpu as multi
 
@@ -3513,13 +3547,14 @@ def phase_launch(dev):
     mesh = printed.splitlines()[0]
     t0 = time.perf_counter()
     explicit = explicit_run(multi, work / "explicit" / "ck",
-                            env("explicit"), work / "store_explicit")
+                            env("explicit"), work / "store_explicit",
+                            local=2)
     explicit_s = time.perf_counter() - t0
     print(f"[launch] cli.train over [cuda:0, cuda:0] (gloo) printed "
           f"{mesh!r}; {LAUNCH_STEPS} steps at B={B}, full width, in "
-          f"{launched_s:.1f} s with the ranks' start; the explicit "
-          f"--num_processes 2 run {explicit_s:.1f} s; launches: the call "
-          f"{parent}, its ranks {ranks}, the explicit ranks {explicit}")
+          f"{launched_s:.1f} s with the ranks' start; its two ranks by "
+          f"hand {explicit_s:.1f} s; launches: the call {parent}, its "
+          f"ranks {ranks}, the ranks by hand {explicit}")
     if mesh != "mesh: data=2 model=1" or any(parent.values()):
         raise AssertionError(f"[launch] the call printed {mesh!r} or "
                              f"launched kernels itself: {parent}")
@@ -3529,11 +3564,11 @@ def phase_launch(dev):
     if sorted(ranks) != [0, 1]:
         raise AssertionError(f"[launch] ranks that ran: {sorted(ranks)}")
     equal = same_run(work / "launched" / "ck", work / "explicit" / "ck")
-    print(f"[launch] the launched run against the explicit one: loss and "
+    print(f"[launch] the launched run against its ranks by hand: loss and "
           f"val histories and the pair bit-equal={equal}")
     if not equal:
-        raise AssertionError("[launch] the launched run differs from the "
-                             "explicit two-rank run of the same flags")
+        raise AssertionError("[launch] the launched run differs from its "
+                             "two ranks started by hand")
     shutil.rmtree(work, ignore_errors=True)
     summary = {"mesh": mesh, "launched_s": launched_s,
                "explicit_s": explicit_s, "bit_equal": equal,
@@ -3668,6 +3703,169 @@ def phase_multihost(dev):
     summary = {"mesh": mesh, "hosts_s": hosts_s, "explicit_s": explicit_s,
                "bit_equal": equal, "phase_s": time.perf_counter() - t_phase}
     return ({f"multihost rank {r}": c for r, c in ranks.items()}, summary,
+            checks)
+
+
+# [cluster]: one host call of a job, its devices left to the detection;
+# it says on stderr which devices it laid out (argv: the CLI's flags)
+CLUSTER_CALL = ("import sys\n"
+                "from densecap_tpu_torch.cli import train\n"
+                "laid = train.local_devices\n"
+                "def local_devices(device, ids=None):\n"
+                "    out = laid(device, ids)\n"
+                "    print('[cluster] laid out', [str(d) for d in out], "
+                "file=sys.stderr, flush=True)\n"
+                "    return out\n"
+                "train.local_devices = local_devices\n"
+                "train.main(sys.argv[1:], backend='gloo')\n")
+# the base of the coordinator port that SLURM's and Open MPI's detectors
+# derive from the job id
+CLUSTER_PORT_BASE = 65535 - 2 ** 12 + 1
+# [cluster]: the Open MPI stand-in whose resolution the phase prints
+OMPI_STANDIN = {"OMPI_MCA_orte_hnp_uri": "1531576320.0;tcp://127.0.0.1,"
+                "10.0.0.2:34911", "OMPI_COMM_WORLD_SIZE": "2",
+                "OMPI_COMM_WORLD_RANK": "1", "OMPI_COMM_WORLD_LOCAL_RANK": "0"}
+
+
+def slurm_job_id():
+    """A SLURM job id whose derived coordinator port (job id % 4096 +
+    61440) is free on 127.0.0.1 now."""
+    for port in range(CLUSTER_PORT_BASE, 65536):
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return 4096 * 1000 + port - CLUSTER_PORT_BASE
+    raise AssertionError("[cluster] no free port in SLURM's derived range")
+
+
+def no_cluster_env():
+    """This environment without a cluster's or JAX's job variables."""
+    return {k: v for k, v in os.environ.items() if not k.startswith(
+        ("SLURM_", "OMPI_", "JAX_COORDINATOR_", "JAX_LOCAL_DEVICE_IDS"))}
+
+
+def phase_cluster(dev):
+    """The JAX CLI's cluster-detected start on the one card, on [h5]'s
+    synthetic VG at full width (B = 8, LAUNCH_STEPS steps, ending in the
+    val eval and the pair): two host calls of a stand-in SLURM job
+    (SLURM_JOB_ID whose derived port is free, SLURM_STEP_NODELIST
+    127.0.0.1, SLURM_NTASKS 2, SLURM_PROCID h, SLURM_LOCALID 0), each
+    `cli.train.main(argv + --num_processes 2 --process_id h,
+    backend="gloo")` with no coordinator and no devices: each must lay
+    out [cuda:0] (its local rank's GPU), meet at 127.0.0.1 on the derived
+    port, and start its one rank, global rank h of 2. At the same time,
+    two explicit one-device host calls (`--device cuda:0 --num_processes
+    2 --process_id h --coordinator_address 127.0.0.1:<port>`, no cluster
+    variables). Both jobs are N = 2 x G = 1, so they feed alike: their
+    loss and val histories and pairs must be bit-equal. Every rank must
+    launch K2 and K2b, global rank 0 also K1; the cluster job's global
+    rank 0 keeps its last K1 and K2 inputs at each shape
+    (MULTIHOST_CAPTURE, local batch 4) and each kernel is held to plain
+    on them after the phase. -> ({path: launches}, summary, {kernel: its
+    checks' records})."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_train_cli_multigpu as multi
+    from torch_train_cli_multihost import free_port
+
+    work = ROOT / "build" / "cluster_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    for probe in ("probe", "probe_explicit"):
+        (work / probe).mkdir(parents=True)
+    (work / "captured").mkdir()
+    (work / "probe" / "sitecustomize.py").write_text(
+        multi.PROBE + "\n\n" + inspect.getsource(capturing)
+        + MULTIHOST_CAPTURE)
+    (work / "probe_explicit" / "sitecustomize.py").write_text(multi.PROBE)
+    t_phase = time.perf_counter()
+    job_id = slurm_job_id()
+    port = free_port()
+    base = no_cluster_env()
+    cluster_env = dict(base, **multi.probe_env(
+        work / "probe", work / "records" / "cluster"),
+        DENSECAP_PROBE_CAPTURE=str(work / "captured"))
+    explicit_env = dict(base, **multi.probe_env(
+        work / "probe_explicit", work / "records" / "explicit"))
+    slurm = [{"SLURM_JOB_ID": str(job_id), "SLURM_STEP_NODELIST":
+              "127.0.0.1", "SLURM_NTASKS": "2", "SLURM_PROCID": str(h),
+              "SLURM_LOCALID": "0"} for h in (0, 1)]
+    resolved = [distributed.resolve_job("", 2, h, env=slurm[h])
+                for h in (0, 1)]
+    ompi = distributed.resolve_job("", 2, 1, env=OMPI_STANDIN)
+    print(f"[cluster] SLURM stand-in SLURM_JOB_ID={job_id}: hosts 0 and 1 "
+          f"resolve (coordinator, N, h, local ids) {resolved}")
+    print(f"[cluster] Open MPI stand-in OMPI_MCA_orte_hnp_uri="
+          f"{OMPI_STANDIN['OMPI_MCA_orte_hnp_uri']!r}, --num_processes 2 "
+          f"--process_id 1: resolves {ompi}")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CLUSTER_CALL]
+        + launch_flags(work / "cluster" / "ck", LAUNCH_STEPS)
+        + ["--num_processes", "2", "--process_id", str(h)], cwd=str(ROOT),
+        env=dict(cluster_env, **slurm[h]), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for h in (0, 1)]
+    procs += [subprocess.Popen(
+        [sys.executable, "-c", CLUSTER_CALL]
+        + launch_flags(work / "explicit" / "ck", LAUNCH_STEPS,
+                       device="cuda:0")
+        + ["--num_processes", "2", "--process_id", str(h),
+           "--coordinator_address", f"127.0.0.1:{port}"], cwd=str(ROOT),
+        env=explicit_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for h in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    both_s = time.perf_counter() - t0
+    names = ("cluster host 0", "cluster host 1", "explicit host 0",
+             "explicit host 1")
+    for name, p, (out, err) in zip(names, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"[cluster] {name} exited {p.returncode}:"
+                                 f"\n{out[-2000:]}\n{err[-4000:]}")
+    laid = [re.findall(r"\[cluster\] laid out (.*)", err)
+            for _, err in outs]
+    ranks = rank_launches(multi, work / "records" / "cluster")
+    explicit = rank_launches(multi, work / "records" / "explicit")
+    devices = {r: rec.get("device") for r, rec in (
+        (multi.rank_of(rec), rec) for rec in multi.read_records(
+            work / "records" / "cluster")) if r is not None}
+    print(f"[cluster] two SLURM host calls and two explicit ones, at once "
+          f"(gloo; {LAUNCH_STEPS} steps at B={B}, full width) in "
+          f"{both_s:.1f} s; the calls laid out {laid}; the cluster ranks "
+          f"ran on {devices}; launches: the cluster ranks {ranks}, the "
+          f"explicit ranks {explicit}")
+    if (resolved != [(f"127.0.0.1:{job_id % 4096 + CLUSTER_PORT_BASE}", 2,
+                      h, [0]) for h in (0, 1)]
+            or laid != [["['cuda:0']"]] * 4):
+        raise AssertionError(f"[cluster] the SLURM calls resolved "
+                             f"{resolved} and laid out {laid}")
+    if sorted(ranks) != [0, 1] or sorted(explicit) != [0, 1] or set(
+            devices.values()) != {"cuda:0"}:
+        raise AssertionError(f"[cluster] ranks that ran: {sorted(ranks)} "
+                             f"on {devices}, explicit {sorted(explicit)}")
+    if "val mAP" not in outs[0][0] or outs[1][0]:
+        raise AssertionError("[cluster] global rank 0 printed no val mAP, "
+                             "or host 1 printed something")
+    for r, c in ranks.items():
+        need_launches(c, ("roi_align", "roi_align_bwd") + (
+            ("nms",) if r == 0 else ()), f"cluster rank {r}")
+    equal = same_run(work / "cluster" / "ck", work / "explicit" / "ck")
+    print(f"[cluster] the SLURM job against the explicit host calls: loss "
+          f"and val histories and the pair bit-equal={equal}")
+    if not equal:
+        raise AssertionError("[cluster] the SLURM job differs from the "
+                             "explicit host calls of the same flags")
+    checks = hold_captured(torch.load(work / "captured" / "rank0.pt",
+                                      map_location=dev, weights_only=True),
+                           "cluster", seed=71)
+    shutil.rmtree(work, ignore_errors=True)
+    summary = {"resolved": resolved, "ompi_standin": ompi,
+               "both_s": both_s, "bit_equal": equal,
+               "phase_s": time.perf_counter() - t_phase}
+    return ({f"cluster rank {r}": c for r, c in ranks.items()}, summary,
             checks)
 
 
@@ -3952,9 +4150,12 @@ def main(argv=None):
     paths.update(launch_counts)
     multihost_counts, multihost, multihost_checks = phase_multihost(dev)
     paths.update(multihost_counts)
+    cluster_counts, cluster, cluster_checks = phase_cluster(dev)
+    paths.update(cluster_counts)
     shutil.rmtree(H5_DIR, ignore_errors=True)
     for key, checks in (("h5_shapes", h5_checks),
-                         ("multihost_shapes", multihost_checks)):
+                         ("multihost_shapes", multihost_checks),
+                         ("cluster_shapes", cluster_checks)):
         for k, shapes in ((k1, checks["nms"]), (k2, checks["roi_align"]),
                           (k2b, checks["roi_align_bwd"])):
             k[key] = shapes
@@ -3980,6 +4181,7 @@ def main(argv=None):
     print(f"[h5] summary {json.dumps(h5)}")
     print(f"[launch] summary {json.dumps(launch)}")
     print(f"[multihost] summary {json.dumps(multihost)}")
+    print(f"[cluster] summary {json.dumps(cluster)}")
     print(f"[tools] summary {json.dumps(tools)}")
     paths["train"] = train
     paths["train buckets"] = bucket_counts
@@ -3989,6 +4191,7 @@ def main(argv=None):
                    "h5 train", "launch rank 0", "launch rank 1",
                    "multihost rank 0", "multihost rank 1",
                    "multihost rank 2", "multihost rank 3",
+                   "cluster rank 0", "cluster rank 1",
                    "tools: torch_stage_profile_train",
                    "tools: torch_mfu_estimate", "tools: torch_throughput_tune",
                    "tools: torch_prenms_topk_check")

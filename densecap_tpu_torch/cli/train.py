@@ -91,10 +91,33 @@ axis, would refuse M > 1 over one-device hosts.
         --device cuda:$r --batch_size 32 --num_processes 4 \
         --process_id $r --coordinator_address localhost:29500 & done
 
-`--batch_size` is the global batch; each rank loads its share from a
-round-robin shard of the split (or, with buckets, its slice of the shared
-schedule), samples with a generator seeded `--seed` + 1 + its data
-index (below), and the gradients are all-reduced
+Under a cluster's launcher the call finds its job as the JAX CLI does
+(`distributed.resolve_job`): with --num_processes > 1 or
+JAX_COORDINATOR_ADDRESS set, what the flags leave unset comes from
+JAX_COORDINATOR_ADDRESS, JAX_COORDINATOR_PORT, JAX_LOCAL_DEVICE_IDS and
+an Open MPI or SLURM job's variables: the coordinator (mpirun's host, or
+the step's first node, at a port derived from the job id), N, and the
+call's GPUs, its local rank's alone, as each JAX process then sees one.
+--process_id is never detected, since the JAX CLI always passes it
+(default 0): give each call its own, or the job ends naming it.
+
+    srun --nodes 2 --ntasks-per-node 8 --gpus-per-node 8 bash -c \
+        'python -m densecap_tpu_torch.cli.train ... --batch_size 32 \
+         --num_processes $SLURM_NTASKS --process_id $SLURM_PROCID'
+    mpirun -np 16 -npernode 8 bash -c \
+        'python -m densecap_tpu_torch.cli.train ... --batch_size 32 \
+         --num_processes $OMPI_COMM_WORLD_SIZE \
+         --process_id $OMPI_COMM_WORLD_RANK'
+
+`--batch_size` is the global batch, fed as JAX feeds it: host h of N
+reads its round-robin shard (h, N) of the split (the whole split when
+N = 1) at B / N, and hands its G / M data slots contiguous slices of
+that batch, so data slot d = h x G / M + j gets rows j x B / D .. of
+host h's batch; a one-device call is a host of its own. With buckets
+host h's batch is its slice of each batch of the schedule that every
+rank runs over the whole split. Each rank reads only its rows
+(`train_source`). Each rank samples with a generator seeded
+`--seed` + 1 + its data index (below), and the gradients are all-reduced
 (`parallel.train_step.Trainer`). Rank 0 alone evaluates, prints and
 writes; the others wait for it. The history's `opt` records the ranks:
 `num_processes` the world and `process_id` the rank, as the explicit run
@@ -103,7 +126,7 @@ writes them.
 `--model_parallel M` adds tensor parallelism: the world's W ranks form
 W / M data slots of M consecutive ranks, and each slot shards fc6, fc7
 and the vocab projection over its ranks (`parallel/tensor_parallel.py`).
-The loader shard and the sampler's seed (`--seed` + 1 + data index)
+The batch rows and the sampler's seed (`--seed` + 1 + data index)
 follow the data index, so the ranks of one slot load, sample and drop
 out alike. At each evaluation every rank gathers the full parameters
 and Adam state; rank 0 evaluates an unsharded model of them and writes
@@ -318,34 +341,52 @@ def data_axis(world, model_parallel, batch_size):
     return data
 
 
-def local_devices(device):
-    """The devices one call may lay its mesh over: every visible GPU for
-    a CUDA device that names no index, else `device` alone."""
-    if device.type == "cuda" and device.index is None:
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [device]
+def local_devices(device, ids=None):
+    """The devices one call may lay its mesh over: for a CUDA device that
+    names no index every visible GPU, or those of `ids` (ordinals among
+    the visible GPUs: JAX_LOCAL_DEVICE_IDS or the cluster's local rank,
+    `distributed.resolve_job`); else `device` alone."""
+    if device.type != "cuda" or device.index is not None:
+        return [device]
+    count = torch.cuda.device_count()
+    if ids is None:
+        return [torch.device("cuda", i) for i in range(count)]
+    if not all(0 <= i < count for i in ids):
+        raise SystemExit(f"local device ids {ids} (JAX_LOCAL_DEVICE_IDS, "
+                         f"or the cluster's local rank) name a GPU this "
+                         f"host does not have: {count} visible")
+    return [torch.device("cuda", i) for i in ids]
 
 
 def main(argv=None, devices=None, backend=None, command=None):
     """The CLI. A process that `parallel.launch` started trains as the
-    rank it was given. Otherwise the call lays its mesh over `devices`
-    (default `local_devices`), alone on its host (`local_layout`) or as
-    host --process_id of --num_processes (`host_layout`), and either
-    trains here (one device, alone or at a file:// store) or starts its
-    ranks (`parallel.launch.launch`
-    with `backend` and `command`: the tests start CPU ranks over gloo with
-    a body of their own, chip_smoke.py gloo ranks on cuda:0)."""
+    rank it was given. Otherwise the call finds its job as the JAX CLI
+    would (`distributed.resolve_job`: its flags, the JAX_* variables, a
+    SLURM or Open MPI job's), lays its mesh over `devices` (default
+    `local_devices`, over the job's local device ids when it has them),
+    alone on its host (`local_layout`) or as host h of N (`host_layout`),
+    and either trains here (one device, alone or at a file:// store) or
+    starts its ranks (`parallel.launch.launch` with `backend` and
+    `command`: the tests start CPU ranks over gloo with a body of their
+    own, chip_smoke.py gloo ranks on cuda:0)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
     rank = distributed.launched()
     if rank is not None:
         (device, args.process_id, args.num_processes,
-         args.coordinator_address) = rank
-        _run(args, device, store=launch.rank_store(args.coordinator_address))
+         args.coordinator_address, local) = rank
+        _run(args, device, store=launch.rank_store(args.coordinator_address),
+             local=local)
         return
+    found = distributed.resolve_job(args.coordinator_address,
+                                    args.num_processes, args.process_id)
+    ids = None
+    if found is not None:
+        (args.coordinator_address, args.num_processes, args.process_id,
+         ids) = found
     device = resolve_device(args.device)
-    devices = local_devices(device) if devices is None else list(devices)
+    devices = (local_devices(device, ids) if devices is None
+               else list(devices))
     hosts = max(args.num_processes, 1)
     if hosts == 1:
         data, model = local_layout(len(devices), args.model_parallel,
@@ -374,10 +415,11 @@ def main(argv=None, devices=None, backend=None, command=None):
         raise SystemExit(code)
 
 
-def _run(args, device, store=None):
+def _run(args, device, store=None, local=1):
     """Train in this process: a single-process run, or rank --process_id
     of --num_processes (meeting in `store`, when given, else at
-    --coordinator_address)."""
+    --coordinator_address). local: G, the ranks of this rank's host
+    call (1 for a one-device call, a host of its own)."""
     nproc = max(args.num_processes, 1)
     local_batch_size = args.batch_size // data_axis(
         nproc, args.model_parallel, args.batch_size)
@@ -388,29 +430,45 @@ def _run(args, device, store=None):
             num_processes=nproc if nproc > 1 else None, process_id=rank,
             device=device, model_parallel=args.model_parallel, store=store)
         stack.callback(distributed.shutdown)
-        _train(args, device, nproc, local_batch_size, stack)
+        _train(args, device, nproc, local_batch_size, stack,
+               host_slots=max(local // distributed.model_size(), 1))
 
 
 def train_source(args, loader, open_loader, data_rank, data_size,
-                 local_batch_size):
+                 local_batch_size, host_slots=1):
     """The zero-argument callable that yields this rank's training
-    batches: slot `data_rank` of `data_size` (its round-robin shard of the
-    split, opened by `open_loader(shard=...)`, `local_batch_size` at a
-    time; with --canvas_buckets its slice of the global batch from the
-    bucket schedule that every rank runs over the unsharded `loader`)."""
-    shard = (data_rank, data_size) if data_size > 1 else None
+    batches, JAX's feed (`densecap_tpu/cli/train.py`): data slot
+    `data_rank` of `data_size` is slot j of the `host_slots` data slots
+    of feed host h (d = h x host_slots + j), and gets rows j x b ..
+    (j + 1) x b - 1, b = `local_batch_size`, of host h's batch, as
+    `make_array_from_process_local_data` hands a host's batch to its
+    devices. Feed host h of H = data_size / host_slots reads its
+    round-robin shard (h, H) of the split (opened by
+    `open_loader(shard=...)`), or the unsharded `loader` when H = 1, at
+    B / H. With --canvas_buckets every rank runs the bucket schedule
+    over the unsharded `loader`, and host h's batch is its slice of each
+    global batch (`BucketedLoader`'s shard). The rank reads only its rows
+    and passes over the others unread, so its loader's generator draws
+    as the host's would (`rows`).
+
+    host_slots: G / M for a rank that its host's call launched over G
+    devices, 1 for a one-device call (a host of its own)."""
+    hosts = data_size // host_slots
+    j = data_rank % host_slots
+    shard = (data_rank // host_slots, hosts) if hosts > 1 else None
+    rows = (j * local_batch_size, (j + 1) * local_batch_size)
     if args.canvas_buckets:
         buckets = [tuple(int(v) for v in b.split("x"))
                    for b in args.canvas_buckets.split(",") if b]
-        bucketed = BucketedLoader(
-            loader, buckets, args.batch_size if shard else local_batch_size,
-            split=0, shard=shard)
+        bucketed = BucketedLoader(loader, buckets, args.batch_size, split=0,
+                                  shard=shard, rows=rows)
         return lambda: bucketed.next_batch()[1]
     train_loader = open_loader(shard=shard) if shard else loader
-    return lambda: train_loader.get_batch(local_batch_size, 0)
+    return lambda: train_loader.get_batch(args.batch_size // hosts, 0,
+                                          rows=rows)
 
 
-def _train(args, device, nproc, local_batch_size, stack):
+def _train(args, device, nproc, local_batch_size, stack, host_slots=1):
     is_main = distributed.is_main_process()
     tp = distributed.model_size() > 1
 
@@ -481,7 +539,8 @@ def _train(args, device, nproc, local_batch_size, stack):
     generator = torch.Generator(device=device).manual_seed(
         args.seed + 1 + data_rank)
     prefetch = PrefetchingLoader(source=train_source(
-        args, loader, open_loader, data_rank, data_size, local_batch_size))
+        args, loader, open_loader, data_rank, data_size, local_batch_size,
+        host_slots))
     stack.callback(prefetch.close)
     tracing = contextlib.ExitStack()
     stack.callback(tracing.close)

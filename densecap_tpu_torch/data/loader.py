@@ -104,12 +104,11 @@ class DenseCapLoader:
         ix_list = self.split_ix[split]
         ix = int(ix_list[ri])
         image = self.images[ix].transpose(1, 2, 0)  # (S, S, 3) uint8
-        r0 = int(self.img_to_first_box[ix]) - 1  # 1-indexed inclusive
-        r1 = int(self.img_to_last_box[ix])
+        r0, r1 = self._box_rows(ix)
         boxes, labels = self.boxes[r0:r1], self.labels[r0:r1]
         G, n = self.max_gt_boxes, len(boxes)
         if n > G:
-            keep = np.sort(self.rng.choice(n, G, replace=False))
+            keep = np.sort(self._subsample(n))
             boxes, labels, n = boxes[keep], labels[keep], G
         gt_boxes = np.zeros((G, 4), np.float32)
         gt_labels = np.zeros((G, self.seq_length()), np.int32)
@@ -127,9 +126,47 @@ class DenseCapLoader:
             "split_pos": (ri, len(ix_list)),
         }
 
-    def get_batch(self, batch_size=1, split=0):
-        """A stacked batch of padded examples."""
-        exs = [self.get_example(split) for _ in range(batch_size)]
+    def _box_rows(self, ix):
+        """The rows [r0, r1) of image ix's boxes (the h5's indices are
+        1-based and inclusive)."""
+        return (int(self.img_to_first_box[ix]) - 1,
+                int(self.img_to_last_box[ix]))
+
+    def _subsample(self, n):
+        """The max_gt_boxes of n boxes an example keeps, one draw from
+        the loader's generator."""
+        return self.rng.choice(n, self.max_gt_boxes, replace=False)
+
+    def pass_over_at(self, split, ri):
+        """Draw from the generator as `get_example_at(split, ri)` would,
+        without reading the example."""
+        r0, r1 = self._box_rows(int(self.split_ix[split][ri]))
+        if r1 - r0 > self.max_gt_boxes:
+            self._subsample(r1 - r0)
+
+    def _pass_over(self, split):
+        """Step past the split's next example without reading it: the
+        iterator moves and the generator draws as `get_example` would."""
+        ix_list = self.split_ix[split]
+        if not len(ix_list):
+            raise ValueError(f"split {split} is empty")
+        ri = self.iterators[split]
+        self.iterators[split] = (ri + 1) % len(ix_list)
+        self.pass_over_at(split, ri)
+
+    def get_batch(self, batch_size=1, split=0, rows=None):
+        """A stacked batch of padded examples. rows: (start, stop), to
+        return only those rows of the batch; the examples of the other
+        rows are passed over unread (`_pass_over`), so the iterator and
+        the ground-truth subsample stay where the whole batch would
+        leave them (a data rank's slice of its host's batch)."""
+        start, stop = rows or (0, batch_size)
+        exs = []
+        for k in range(batch_size):
+            if start <= k < stop:
+                exs.append(self.get_example(split))
+            else:
+                self._pass_over(split)
         return {k: np.stack([e[k] for e in exs]) for k in BATCH_KEYS}
 
     def close(self):
@@ -159,10 +196,14 @@ class BucketedLoader:
     """
 
     def __init__(self, loader, buckets, batch_size, split=0, iterate=True,
-                 shard=None, seed=0):
+                 shard=None, seed=0, rows=None):
         """batch_size is the global batch when shard is given (the loader
         must then be unsharded); this process loads batch_size //
-        num_processes examples a batch."""
+        num_processes examples a batch. rows: (start, stop), to read only
+        those rows of this process's slice; the others are passed over
+        unread (`DenseCapLoader.pass_over_at`), so the loader's generator
+        draws as it would for the whole slice (a data rank's rows of its
+        host's slice)."""
         S = loader.canvas
         self.loader = loader
         self.buckets = sorted(set(tuple(b) for b in buckets) | {(S, S)},
@@ -171,6 +212,7 @@ class BucketedLoader:
         self.split = split
         self.iterate = iterate
         self.shard = shard
+        self.rows = rows
         if shard is not None:
             pid, nproc = shard
             if not (0 <= pid < nproc and batch_size % nproc == 0):
@@ -252,8 +294,15 @@ class BucketedLoader:
             pid, nproc = self.shard
             lb = self.batch_size // nproc
             sel = slice(pid * lb, (pid + 1) * lb)
-        local, wloc = ris[sel], weight[sel]
-        exs = [self.loader.get_example_at(self.split, ri) for ri in local]
+        local = ris[sel]
+        start, stop = self.rows or (0, len(local))
+        exs = []
+        for k, ri in enumerate(local):
+            if start <= k < stop:
+                exs.append(self.loader.get_example_at(self.split, ri))
+            else:
+                self.loader.pass_over_at(self.split, ri)
+        wloc = weight[sel][start:stop]
         batch = {k: np.stack([e[k][:bh, :bw] if k == "image" else e[k]
                               for e in exs]) for k in BATCH_KEYS}
         batch["weight"] = wloc

@@ -11,10 +11,12 @@ does not survive a fork), each as
 
     <command> <argv>
 
-with its device, the backend, its global rank, the world size and the
-store the ranks meet at in its environment (`distributed.DEVICE_ENV`,
-`BACKEND_ENV`, `RANK_ENV`, `WORLD_ENV`, `STORE_ENV`; `cli.train` reads
-them through `distributed.launched` before its flags). The caller touches
+with its device, the backend, its global rank, the world size, the
+store the ranks meet at and G in its environment
+(`distributed.DEVICE_ENV`, `BACKEND_ENV`, `RANK_ENV`, `WORLD_ENV`,
+`STORE_ENV`, `LOCAL_ENV`; `cli.train` reads them through
+`distributed.launched` before its flags; G tells a rank its host's share
+of the batch). The caller touches
 no GPU, so each rank has its device to itself.
 
 Alone on its host (`job=None`), the call's ranks are ranks 0..G-1 of G
@@ -23,9 +25,12 @@ when they have ended, so no TCP port is picked and raced for.
 
 One host of N (`job`, a `HostJob`): the job's N calls meet first at the
 coordinator's TCP store, which host 0's call serves, as JAX's process 0
-serves its coordinator; every call must lay out the same G (a mismatch
-ends every call, naming the rule, as soon as all have met), and a call
-whose peers do not all arrive within RENDEZVOUS_S exits non-zero. Host
+serves its coordinator; every call, host 0's too, reaches it as a client
+at the coordinator's address and claims its --process_id there. Two
+calls that claim one id end every call of the job, naming
+--process_id; every call must lay out the same G (a mismatch ends every
+call, naming the rule, as soon as all have met), and a call whose peers
+do not all arrive within RENDEZVOUS_S exits non-zero. Host
 h's ranks are then global ranks h x G + r of N x G and connect to that
 store as clients. While they run, each call beats in the store every
 JOB_POLL_S and reads it: when a rank fails on one host (or its call gets
@@ -66,8 +71,8 @@ import time
 
 import torch.distributed as dist
 
-from .distributed import (BACKEND_ENV, DEVICE_ENV, RANK_ENV, STORE_ENV,
-                          WORLD_ENV)
+from .distributed import (BACKEND_ENV, DEVICE_ENV, LOCAL_ENV, RANK_ENV,
+                          STORE_ENV, WORLD_ENV)
 
 # How long the ranks have to exit on a forwarded signal, and then on
 # SIGTERM, before SIGKILL.
@@ -130,9 +135,11 @@ def rank_store(url):
 
 class HostJob:
     """This call's place in a job of `hosts` host calls: the job's TCP
-    store at the coordinator (host 0's call serves it, the others are
-    its clients), where the calls meet, beat, and leave word of a failure
-    or of their end."""
+    store at the coordinator (host 0's call serves it; every call is its
+    client at the coordinator's address, so a call that claims host 0
+    off the coordinator's machine still meets the job there), where the
+    calls claim their ids, meet, beat, and leave word of a failure or of
+    their end."""
 
     def __init__(self, coordinator, host, hosts):
         address = tcp_address(coordinator)
@@ -145,30 +152,59 @@ class HostJob:
                              f"--num_processes {hosts}")
         self.host, self.hosts = host, hosts
         self.url = "tcp://%s:%d" % address
+        self.server = None
+        if host == 0:
+            try:
+                self.server = dist.TCPStore(*address, is_master=True,
+                                            timeout=_timeout(),
+                                            wait_for_workers=False)
+            except dist.DistNetworkError:
+                pass  # the port is taken: by a call that claims host 0
+                #       too, which `meet` tells, or by no store at all
         try:
-            self.store = dist.TCPStore(*address, is_master=host == 0,
-                                       timeout=_timeout(),
-                                       wait_for_workers=False)
+            self.store = dist.TCPStore(*address, is_master=False,
+                                       timeout=_timeout())
         except dist.DistError as e:
             raise SystemExit(f"host {host}: no store at {self.url} within "
                              f"{RENDEZVOUS_S:g} s: {e}") from None
         self._beats = {}  # host -> (its beat, when it last moved)
 
     def meet(self, n_devices):
-        """Wait up to RENDEZVOUS_S for every host, and check that all lay
-        out `n_devices`; SystemExit on either. -> the world, N x G."""
+        """Claim this call's id, wait up to RENDEZVOUS_S for every host,
+        and check that all lay out `n_devices`; SystemExit on a second
+        claim of one id (in every call of the job), on a host missing or
+        on unequal counts. -> the world, N x G."""
         keys = [f"devices/{h}" for h in range(self.hosts)]
+        missing = (f"host {self.host}: the job's {self.hosts} hosts did not "
+                   f"all meet at {self.url} within {RENDEZVOUS_S:g} s (does "
+                   "every call give its own --process_id?)")
         try:
+            if self.store.add(f"claim/{self.host}", 1) > 1:
+                # an srun or mpirun line that passes no --process_id: the
+                # JAX CLI's default is 0 too
+                why = (f"two calls of the job claim --process_id "
+                       f"{self.host}: give each call its own (srun: "
+                       "--process_id $SLURM_PROCID; mpirun: --process_id "
+                       "$OMPI_COMM_WORLD_RANK)")
+                self.fail(why)
+                if self.server is not None:  # let the others read the word
+                    time.sleep(2 * JOB_POLL_S)
+                raise SystemExit(f"host {self.host}: {why}")
             self.store.set(keys[self.host], str(n_devices))
-            self.store.wait(keys)
+            deadline = time.monotonic() + RENDEZVOUS_S
+            while not self.store.check(keys):
+                if self.store.check(["failed"]):
+                    raise SystemExit(f"host {self.host}: "
+                                     + self.store.get("failed").decode())
+                if time.monotonic() > deadline:
+                    raise SystemExit(missing)
+                time.sleep(POLL_S)
             counts = [int(self.store.get(k)) for k in keys]
             self.store.set(f"met/{self.host}", "1")
             if self.host == 0:  # the others read before the store can close
                 self.store.wait([f"met/{h}" for h in range(self.hosts)])
         except dist.DistError as e:
-            raise SystemExit(
-                f"host {self.host}: the job's {self.hosts} hosts did not all "
-                f"meet at {self.url} within {RENDEZVOUS_S:g} s: {e}") from None
+            raise SystemExit(f"{missing}: {e}") from None
         if len(set(counts)) > 1:
             raise SystemExit(
                 "every host of a job must lay out the same number of "
@@ -217,10 +253,13 @@ class HostJob:
         return None
 
 
-def rank_env(device, backend, rank, world, store):
+def rank_env(device, backend, rank, world, store, local):
+    """The environment of a rank (`local`: G, the ranks its host's call
+    starts)."""
     env = dict(os.environ)
     env.update({DEVICE_ENV: str(device), BACKEND_ENV: backend,
-                RANK_ENV: str(rank), WORLD_ENV: str(world), STORE_ENV: store})
+                RANK_ENV: str(rank), WORLD_ENV: str(world), STORE_ENV: store,
+                LOCAL_ENV: str(local)})
     env["PYTHONPATH"] = os.pathsep.join(
         [_ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                    if p])
@@ -301,7 +340,7 @@ def launch(argv, devices, backend=None, command=None, job=None):
             procs.append(subprocess.Popen(
                 _armed(command + list(argv)),
                 env=rank_env(device, backend, first + r,
-                             hosts * len(devices), store),
+                             hosts * len(devices), store, len(devices)),
                 stdout=None if first + r == 0 else subprocess.DEVNULL,
                 start_new_session=True))
         code, why, ended, watch_at = 0, None, False, 0.0

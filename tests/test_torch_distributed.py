@@ -207,22 +207,28 @@ def test_rank_device_and_single_process(monkeypatch):
     assert (distributed.rank(), distributed.world_size()) == (0, 1)
     assert distributed.is_main_process()
     distributed.barrier()  # no group: returns at once
-    # a rank's device, rank, world and store come from its launcher alone
+    # a rank's device, rank, world, store and G come from its launcher
+    # alone
     for k in (distributed.DEVICE_ENV, distributed.RANK_ENV,
-              distributed.WORLD_ENV, distributed.STORE_ENV):
+              distributed.WORLD_ENV, distributed.STORE_ENV,
+              distributed.LOCAL_ENV):
         monkeypatch.delenv(k, raising=False)
     assert distributed.launched() is None
     monkeypatch.setenv(distributed.DEVICE_ENV, "cuda:1")
     monkeypatch.setenv(distributed.RANK_ENV, "3")
     monkeypatch.setenv(distributed.WORLD_ENV, "4")
     monkeypatch.setenv(distributed.STORE_ENV, "tcp://127.0.0.1:29500")
+    monkeypatch.setenv(distributed.LOCAL_ENV, "2")
     assert distributed.launched() == (torch.device("cuda", 1), 3, 4,
-                                      "tcp://127.0.0.1:29500")
+                                      "tcp://127.0.0.1:29500", 2)
 
 
 def test_batch_must_divide_across_processes(dataset, tmp_path):  # noqa: F811
     from densecap_tpu_torch.cli import train
 
+    # a multi-host call names its coordinator (as the JAX CLI must, with
+    # no cluster to take it from)
     with pytest.raises(SystemExit, match="divide evenly across 2 processes"):
         train.main(_args(dataset, str(tmp_path / "x"), 1)
-                   + ["--batch_size", "3", "--num_processes", "2"])
+                   + ["--batch_size", "3", "--num_processes", "2",
+                      "--coordinator_address", f"file://{tmp_path}/store"])

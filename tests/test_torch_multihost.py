@@ -257,16 +257,16 @@ def _recording(loader, log):
     return loader
 
 
-def _global_batches(feeds, steps):
-    """Each step's examples over all feeds [(next_batch, log)], sorted."""
+def _steps(feeds, steps):
+    """What each feed [(next_batch, log)] read at each step, in order."""
     out = []
     for _ in range(steps):
-        step = []
+        row = []
         for next_batch, log in feeds:
             del log[:]
             next_batch()
-            step += log
-        out.append(sorted(step))
+            row.append(list(log))
+        out.append(row)
     return out
 
 
@@ -275,18 +275,26 @@ STEPS = 8  # three epochs of 10 images at B = 4
 
 @pytest.mark.parametrize("buckets", ["", "48x64"])
 @pytest.mark.parametrize("hosts,local,model", [
+    (1, 2, 1), (1, 2, 2), (1, 4, 1), (1, 4, 2),
     (2, 1, 1), (2, 2, 1), (2, 2, 2), (2, 4, 2), (2, 4, 4)])
 def test_global_batch_is_the_jax_multihost_feed(vg, tmp_path, hosts, local,
                                                 model, buckets):
-    """Every rank's feed as the CLI builds it (slot d of D = N x G / M)
-    against JAX's N host feeds, over STEPS steps. With buckets the
-    schedule is global and they agree at every step. Without, each rank
-    reads its round-robin shard of the split: they agree at every step
-    while D divides the split (10), and otherwise up to the epoch's end,
-    parting at the first step that wraps a shard (step 2: the port's
-    four shards of 3, 3, 2 and 2 wrap at different steps where JAX's two
-    of 5 wrap together)."""
-    data, _ = train.host_layout(hosts, local, model, B)
+    """Every rank's feed as the CLI builds it (slot d of D, d = h x G / M
+    + j on host h of N) against JAX's feed over STEPS steps, across the
+    shard wraps: host h's batch (its loader's `shard=(h, N)` at B / N, or
+    its `BucketedLoader` slice; with N = 1 the unsharded split at B, the
+    one-process feed), handed to the host's G / M data slots in
+    contiguous slices, as `make_array_from_process_local_data` hands it
+    to the host's devices. Each slot reads the same examples in the same
+    order at every step. On one host the call launches D x M of its G
+    devices (`local_layout`), and its ranks' G is that."""
+    if hosts == 1:
+        data, _ = train.local_layout(local, model, B)
+        launched = data * model
+    else:
+        data, _ = train.host_layout(hosts, local, model, B)
+        launched = local
+    slots = max(launched // model, 1)
     args = train.build_argparser().parse_args(
         flags(vg, tmp_path / "x", 1, ["--canvas_buckets", buckets]))
     h5, js = str(vg / "d.h5"), str(vg / "d.json")
@@ -303,35 +311,97 @@ def test_global_batch_is_the_jax_multihost_feed(vg, tmp_path, hosts, local,
             loader = _recording(open_port(), log)
             source = train.train_source(
                 args, loader, lambda **kw: _recording(open_port(**kw), log),
-                d, data, B // data)
+                d, data, B // data, slots)
             port.append((source, log))
         jax = []
+        shard = (lambda h: (h, hosts)) if hosts > 1 else (lambda h: None)
         for h in range(hosts):
             log = []
             if buckets:
                 bl = jl.BucketedLoader(
                     _recording(jl.DenseCapLoader(h5, js, max_gt_boxes=4),
                                log), [(48, 64)], B, split=0,
-                    shard=(h, hosts))
+                    shard=shard(h))
                 jax.append((bl.next_batch, log))
             else:
                 jloader = _recording(jl.DenseCapLoader(
-                    h5, js, max_gt_boxes=4, shard=(h, hosts)), log)
+                    h5, js, max_gt_boxes=4, shard=shard(h)), log)
                 jax.append((functools.partial(jloader.get_batch, B // hosts,
                                               0), log))
-        got, want = (_global_batches(f, STEPS) for f in (port, jax))
+        got, want = _steps(port, STEPS), _steps(jax, STEPS)
     finally:
         for loader in opened:
             loader.close()
-    assert all(len(g) == B for g in got)
-    if buckets or TRAIN_IMAGES % data == 0:
-        assert got == want
-    else:
-        wrap = TRAIN_IMAGES // B
-        assert got[:wrap] == want[:wrap]
-        assert got[wrap] != want[wrap]
-        assert set(got[wrap]) == {8, 9, 2, 3} and set(want[wrap]) == {
-            8, 9, 0, 1}
+    b = B // data
+    want = [[host[j * b:(j + 1) * b] for host in step for j in range(slots)]
+            for step in want]
+    assert all(len(slot) == b for step in got for slot in step)
+    assert got == want
+    assert len({ix for step in got for slot in step for ix in slot}) == (
+        TRAIN_IMAGES)
+
+
+@pytest.mark.parametrize("buckets", [False, True])
+@pytest.mark.parametrize("hosts,slots", [(1, 2), (1, 4), (2, 2)])
+def test_a_rank_draws_for_the_rows_it_passes_over(vg, hosts, slots,
+                                                  buckets):
+    """At max_gt_boxes 1 every image of two regions draws its ground-truth
+    subsample from the loader's generator. A rank that reads only its
+    rows of its host's batch (`get_batch(..., rows=...)`, or
+    `BucketedLoader(..., rows=...)` on the host's slice of the bucket
+    schedule) still draws for the other rows, unread, so its examples
+    equal those rows of the JAX host loader's whole batch, ground truth
+    and weights included, across the shard wraps and the epoch's tail;
+    and it reads no image of the other rows."""
+    h5, js = str(vg / "d.h5"), str(vg / "d.json")
+    host_batch = B // hosts
+    b = host_batch // slots
+    for h in range(hosts):
+        shard = (h, hosts) if hosts > 1 else None
+        ref_log = []
+        if buckets:
+            ref = _recording(jl.DenseCapLoader(
+                h5, js, max_gt_boxes=1, raw_images=True), ref_log)
+            host = jl.BucketedLoader(ref, [(48, 64)], B, split=0,
+                                     shard=shard)
+            whole_batch = lambda: host.next_batch()[1]  # noqa: E731
+        else:
+            ref = _recording(jl.DenseCapLoader(
+                h5, js, max_gt_boxes=1, shard=shard, raw_images=True),
+                ref_log)
+            whole_batch = functools.partial(ref.get_batch, host_batch, 0)
+        ranks = []
+        for j in range(slots):
+            log, rows = [], (j * b, (j + 1) * b)
+            loader = _recording(pl.DenseCapLoader(
+                h5, js, max_gt_boxes=1, shard=None if buckets else shard),
+                log)
+            if buckets:
+                bl = pl.BucketedLoader(loader, [(48, 64)], B, split=0,
+                                       shard=shard, rows=rows)
+                read = lambda bl=bl: bl.next_batch()[1]  # noqa: E731
+            else:
+                read = functools.partial(loader.get_batch, host_batch, 0,
+                                         rows=rows)
+            ranks.append((loader, read, log))
+        try:
+            for _ in range(STEPS):
+                del ref_log[:]
+                whole = whole_batch()
+                for j, (_, read, log) in enumerate(ranks):
+                    del log[:]
+                    got = read()
+                    rows = slice(j * b, (j + 1) * b)
+                    assert log == ref_log[rows]
+                    for k in pl.BATCH_KEYS + (("weight",) if buckets
+                                              else ()):
+                        np.testing.assert_array_equal(
+                            got[k], whole[k][rows], err_msg=k)
+                    assert got["gt_valid"].sum() == b  # one box of two
+        finally:
+            ref.h5.close()
+            for loader, _, _ in ranks:
+                loader.close()
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +420,22 @@ def _explicit(argv, tmp_path, records, world=4):
         stderr=subprocess.PIPE, text=True) for r in range(world)]
 
 
+def _by_hand(argv, tmp_path, records, world=4, local=2):
+    """The ranks of world / local host calls of `local` devices each,
+    started by hand with what the launcher gives them: its environment
+    (`launch.rank_env`: cpu, gloo, global rank r, the world, a file
+    store, G = local) and the flags of host r // local's call."""
+    env = _env(records)
+    store = f"file://{tmp_path}/store"
+    return [subprocess.Popen(
+        [sys.executable, "-c", RANK_BODY] + argv + [
+            "--num_processes", str(world // local), "--process_id",
+            str(r // local)], cwd=str(tmp_path),
+        env={**launch.rank_env("cpu", "gloo", r, world, store, local),
+             **env}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+
+
 def _records(folder):
     return [json.loads(p.read_text()) for p in sorted(folder.iterdir())]
 
@@ -363,16 +449,25 @@ def test_two_hosts_match_four_one_device_calls(vg, tmp_path, extra, mesh,
                                                steps):
     """Global batch 4, evaluated and saved at the last step. With buckets,
     4 steps run the 48x64 bucket, the square, the epoch's tail through
-    the square, and the 48x64 bucket of the next epoch."""
+    the square, and the 48x64 bucket of the next epoch.
+
+    The four one-device calls are four hosts of one data slot each; JAX's
+    feed gives them the batches of two hosts of two slots only where a
+    host's slots are whole model groups (model 2) or share one schedule
+    (buckets; a host's loader would draw the ground-truth subsample for
+    its whole slice, but no image here has more than max_gt_boxes). At
+    data 4 without buckets the counterpart is the two hosts' four ranks
+    started by hand with the launcher's environment (`_by_hand`)."""
+    by_hand = not extra
     runs = {k: tmp_path / k for k in ("hosts", "explicit")}
     for d in runs.values():
         d.mkdir()
     hosts = start_hosts(flags(vg, runs["hosts"] / "ck" / "densecap", steps,
                               extra), runs["hosts"], [("cpu", "cpu")] * 2,
                         records=runs["hosts"] / "records")
-    explicit = _explicit(flags(vg, runs["explicit"] / "ck" / "densecap",
-                               steps, extra), runs["explicit"],
-                         runs["explicit"] / "records")
+    explicit = (_by_hand if by_hand else _explicit)(
+        flags(vg, runs["explicit"] / "ck" / "densecap", steps, extra),
+        runs["explicit"], runs["explicit"] / "records")
     results = finish(hosts + explicit)
     for code, out, err in results:
         assert code == 0, err[-4000:]
@@ -387,7 +482,11 @@ def test_two_hosts_match_four_one_device_calls(vg, tmp_path, extra, mesh,
         (0, 0), (0, 1), (1, 2), (1, 3)]
     assert {(r["world"], r["device"]) for r in launched} == {("4", "cpu")}
     explicit_recs = _records(runs["explicit"] / "records")
-    assert sorted(r["host"] for r in explicit_recs) == [0, 1, 2, 3]
+    if by_hand:
+        assert sorted((r["host"], int(r["rank"])) for r in explicit_recs
+                      ) == [(0, 0), (0, 1), (1, 2), (1, 3)]
+    else:
+        assert sorted(r["host"] for r in explicit_recs) == [0, 1, 2, 3]
     if "--canvas_buckets" in extra:
         seqs = [r["buckets"][:steps] for r in launched + explicit_recs]
         assert all(s == seqs[0] for s in seqs), seqs

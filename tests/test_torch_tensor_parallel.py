@@ -442,8 +442,11 @@ def test_train_cli_model_parallel_rules(dataset, tmp_path, flags,  # noqa: F811
                                         message):
     from densecap_tpu_torch.cli import train
 
+    # a multi-host call names its coordinator (as the JAX CLI must, with
+    # no cluster to take it from)
     with pytest.raises(SystemExit, match=message):
-        train.main(_args(dataset, str(tmp_path / "x"), 1) + flags)
+        train.main(_args(dataset, str(tmp_path / "x"), 1) + flags
+                   + ["--coordinator_address", f"file://{tmp_path}/store"])
     assert not distributed.is_initialized()
 
 

@@ -115,6 +115,18 @@ def _explicit(argv, tmp_path):
     return procs
 
 
+def _by_hand(argv, tmp_path):
+    """The launcher's two ranks of `argv` started by hand: the rank body
+    with the environment the launcher gives them (`launch.rank_env`: cpu,
+    gloo, rank r of 2, a file store, G = 2)."""
+    store = f"file://{tmp_path}/store"
+    return [subprocess.Popen(
+        [sys.executable, "-c", RANK_BODY] + argv, cwd=str(tmp_path),
+        env=dict(launch.rank_env("cpu", "gloo", r, 2, store, 2),
+                 PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+
+
 def _finish(procs):
     try:
         outs = [p.communicate(timeout=TIMEOUT) for p in procs]
@@ -159,12 +171,15 @@ def _same_tree(a, b, path=""):
 def test_launched_ranks_match_the_explicit_run(dataset, tmp_path,  # noqa: F811
                                                capfd, flags, mesh):
     """Global batch 2, two iterations, evaluated and saved at 2: the
-    launcher's ranks and the explicit ones, at the same time."""
+    launcher's ranks and the explicit ones, at the same time. At data 2
+    JAX's one-process feed hands the ranks halves of one batch of the
+    whole split, where two one-device calls read a shard each; there the
+    counterpart is the launcher's ranks started by hand (`_by_hand`)."""
     runs = {k: str(tmp_path / k / "ck" / "densecap")
             for k in ("launched", "explicit")}
     (tmp_path / "explicit").mkdir()
-    explicit = _explicit(_args(dataset, runs["explicit"], 2) + flags,
-                         tmp_path / "explicit")
+    explicit = (_explicit if flags else _by_hand)(
+        _args(dataset, runs["explicit"], 2) + flags, tmp_path / "explicit")
     try:
         train.main(_args(dataset, runs["launched"], 2) + flags,
                    devices=["cpu", "cpu"], backend="gloo",
