@@ -20,8 +20,14 @@ The step's losses are read a few steps late (one scalar each), so the
 host does not wait for the card after every step. Every
 `--losses_log_every` iterations the losses are printed and kept; a NaN
 loss, or one past 100 x the first, aborts (up to 3 steps after the step
-that made it). `--timing 1` prints the mean host time of the `data` and
-`step` stages on log steps (the step synchronizes the card then);
+that made it). `--timing 1` switches the program's spans on and prints,
+on log steps, the mean device ms of the `data` stage (the
+`train.data_wait` span: the loader's next batch and its copy to the
+card), of the `step` stage (`train.step`) and of the step's phases
+(`train.forward`, `train.backward`, `train.grad_reduce`,
+`train.optimizer`), in the JAX twin's report format; a rank other than
+0 prints its own, after `rank <r>: `. Nothing synchronizes the card for
+it but the report, which waits for the steps in flight.
 `--profile_dir` writes a `torch.profiler` trace of steps 3-5 there.
 
 Every `--save_checkpoint_every` iterations, at `--max_iters`, and after
@@ -151,7 +157,7 @@ from ..eval.eval_split import eval_split
 from ..parallel import distributed, launch
 from ..parallel.train_step import Trainer, cosine_decay_schedule
 from ..utils import checkpoint as ckpt
-from ..utils.profiling import StageTimer, device_trace
+from ..utils.profiling import StageTimer, device_trace, set_recording, span
 from ._common import NOT_PORTED, resolve_device
 
 # Loss dicts wait this many steps before their one scalar is read.
@@ -213,8 +219,8 @@ def build_argparser():
                    help="resume from the <prefix>.npz / <prefix>.optim.pt "
                         "pair of an earlier run")
     p.add_argument("--timing", type=int, default=0,
-                   help="print the data and step stages' mean host ms on "
-                        "log steps")
+                   help="print the data and step stages' and the step's "
+                        "phases' mean device ms on log steps")
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler trace of steps 3-5 here")
     # multi-host runs (as the JAX CLI's): one call per host with the same
@@ -232,6 +238,14 @@ def build_argparser():
                         "projection are sharded over them; the call lays "
                         "a data x model mesh over the job's devices")
     return p
+
+
+# `--timing`: the spans reported, by the stage each is reported as
+TIMING_SPANS = {"train.data_wait": "data", "train.step": "step",
+                "train.forward": "train.forward",
+                "train.backward": "train.backward",
+                "train.grad_reduce": "train.grad_reduce",
+                "train.optimizer": "train.optimizer"}
 
 
 def _to_device(batch, device):
@@ -548,7 +562,9 @@ def _train(args, device, nproc, local_batch_size, stack, host_slots=1):
     loss_history, results_history = {}, {}
     best_val_score = -1.0
     loss0 = None
-    timer = StageTimer(enabled=bool(args.timing))
+    timer = StageTimer(enabled=bool(args.timing), spans=TIMING_SPANS)
+    if args.timing:
+        stack.callback(set_recording, set_recording(True))
     # The step's losses wait here and are read FETCH_LAG steps late, one
     # scalar each (total_loss; the dict only on log steps), so the host
     # does not stall the card after every step. drain(True) runs before
@@ -568,6 +584,8 @@ def _train(args, device, nproc, local_batch_size, stack, host_slots=1):
                     print(f"iter {it_o}: {json.dumps(vals)}")
                     if args.timing:
                         print(timer.report())
+                elif args.timing:
+                    print(f"rank {distributed.rank()}: {timer.report()}")
             # loss explosion watchdog (train.lua:203-208) + NaN guard; the
             # losses are all-reduced, so every rank stops at the same step
             if loss0 is None:
@@ -579,7 +597,7 @@ def _train(args, device, nproc, local_batch_size, stack, host_slots=1):
                     f"loss exploded ({total} > 100 x {loss0}); aborting")
 
     traced = False
-    with timer.stage("data"):
+    with span("train.data_wait", device):
         next_batch = _to_device(prefetch.next(), device)
     while args.max_iters < 0 or it < args.max_iters:
         batch = next_batch
@@ -592,13 +610,10 @@ def _train(args, device, nproc, local_batch_size, stack, host_slots=1):
             tracing.enter_context(device_trace(
                 args.profile_dir, cuda=device.type == "cuda"))
             traced = True
-        with timer.stage("step"):
-            losses = trainer.step(batch, generator=generator)
-            if args.timing and device.type == "cuda":
-                torch.cuda.synchronize(device)
+        losses = trainer.step(batch, generator=generator)
         it += 1
         # the next batch's copy to the card runs beside this step
-        with timer.stage("data"):
+        with span("train.data_wait", device):
             next_batch = _to_device(prefetch.next(), device)
         if traced and it == 5:  # the profiler synchronizes the card
             tracing.close()

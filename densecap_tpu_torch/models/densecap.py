@@ -20,6 +20,7 @@ from ..ops import losses as L
 from ..ops.boxes import clip_boxes, xcycwh_to_x1y1x2y2
 from ..ops.nms import nms
 from ..ops.transforms import apply_box_transform
+from ..utils.profiling import span
 from .localization import gather_rows, localize_test, localize_train
 from .lstm import get_target
 from .vgg16 import dot_f32, frozen
@@ -61,13 +62,15 @@ class DenseCap(nn.Module):
         `cfg.static_freeze_cnn` trunk2 does too, which removes the whole
         trunk from the backward.
         """
-        x = images.permute(0, 3, 1, 2)  # channels_last view of the NHWC input
-        with torch.no_grad():
-            x = self.trunk1(x, img_h, img_w, fuse=self.cfg.fuse_conv_pool)
-        eh, ew = torch.floor(img_h / 4.0), torch.floor(img_w / 4.0)
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not self.cfg.static_freeze_cnn):
-            return self.trunk2(x, eh, ew)
+        with span("trunk"):
+            x = images.permute(0, 3, 1, 2)  # channels_last view of NHWC
+            with torch.no_grad():
+                x = self.trunk1(x, img_h, img_w,
+                                fuse=self.cfg.fuse_conv_pool)
+            eh, ew = torch.floor(img_h / 4.0), torch.floor(img_w / 4.0)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not self.cfg.static_freeze_cnn):
+                return self.trunk2(x, eh, ew)
 
     def _linear(self, x, w, b):
         return dot_f32(x, w, self.cfg.compute_dtype) + b
@@ -85,34 +88,39 @@ class DenseCap(nn.Module):
         cfg = self.cfg
         img_h, img_w = img_h.float(), img_w.float()
         feats = self.features(images, img_h, img_w)
-        loc = localize_train(self.rpn, feats, img_h, img_w, gt_boxes,
-                             gt_labels, gt_valid, generator, cfg,
-                             cfg.anchor_tensor(images.device),
-                             debug_sampler=debug_sampler)
+        with span("localize"):
+            loc = localize_train(self.rpn, feats, img_h, img_w, gt_boxes,
+                                 gt_labels, gt_valid, generator, cfg,
+                                 cfg.anchor_tensor(images.device),
+                                 debug_sampler=debug_sampler)
         B, R = loc.roi_boxes.shape[:2]
         P = loc.pos_valid.shape[1]
-        codes = self.recog(loc.roi_feats.flatten(0, 1),
-                           drop_prob=cfg.drop_prob, generator=generator)
-        roi_valid = torch.cat([loc.pos_valid, loc.neg_valid], 1)
+        with span("recog"):
+            codes = self.recog(loc.roi_feats.flatten(0, 1),
+                               drop_prob=cfg.drop_prob, generator=generator)
+            roi_valid = torch.cat([loc.pos_valid, loc.neg_valid], 1)
 
-        # final objectness: valid positive slots labeled 1, the rest 0
-        obj_scores = self._linear(codes, self.obj_w, self.obj_b)
-        obj_labels = torch.cat([loc.pos_valid.long(),
-                                torch.zeros_like(loc.neg_valid.long())], 1)
-        end_obj = cfg.end_objectness_weight * L.logistic(
-            obj_scores.reshape(B, R, -1), obj_labels, roi_valid)
+            # final objectness: valid positive slots labeled 1, the rest 0
+            obj_scores = self._linear(codes, self.obj_w, self.obj_b)
+            obj_labels = torch.cat(
+                [loc.pos_valid.long(),
+                 torch.zeros_like(loc.neg_valid.long())], 1)
+            end_obj = cfg.end_objectness_weight * L.logistic(
+                obj_scores.reshape(B, R, -1), obj_labels, roi_valid)
 
-        pos_codes = codes.reshape(B, R, -1)[:, :P].flatten(0, 1)
-        final_trans = self._linear(pos_codes, self.box_w, self.box_b)
-        end_box = L.box_regression(
-            loc.pos_boxes, final_trans.reshape(B, P, 4),
-            loc.pos_target_boxes, loc.pos_valid, weight=cfg.end_box_reg_weight)
+            pos_codes = codes.reshape(B, R, -1)[:, :P].flatten(0, 1)
+            final_trans = self._linear(pos_codes, self.box_w, self.box_b)
+            end_box = L.box_regression(
+                loc.pos_boxes, final_trans.reshape(B, P, 4),
+                loc.pos_target_boxes, loc.pos_valid,
+                weight=cfg.end_box_reg_weight)
 
-        labels = loc.pos_target_labels
-        lm_scores = self.lm.forward_train(pos_codes, labels.flatten(0, 1))
-        cap = cfg.captioning_weight * L.temporal_cross_entropy(
-            lm_scores.reshape(B, P, *lm_scores.shape[1:]),
-            get_target(labels, cfg.vocab_size), loc.pos_valid)
+        with span("lm.train"):
+            labels = loc.pos_target_labels
+            lm_scores = self.lm.forward_train(pos_codes, labels.flatten(0, 1))
+            cap = cfg.captioning_weight * L.temporal_cross_entropy(
+                lm_scores.reshape(B, P, *lm_scores.shape[1:]),
+                get_target(labels, cfg.vocab_size), loc.pos_valid)
 
         losses = dict(loc.losses)
         losses["end_objectness_loss"] = end_obj
@@ -129,15 +137,19 @@ class DenseCap(nn.Module):
         (B, K, D), objectness (B, K), final xcycwh boxes (B, K, 4))."""
         img_h, img_w = img_h.float(), img_w.float()
         feats = self.features(images, img_h, img_w)
-        loc = localize_test(
-            self.rpn, feats, img_h, img_w, self.cfg,
-            self.cfg.anchor_tensor(images.device), nms_thresh=rpn_nms_thresh,
-            max_proposals=max_proposals)
+        with span("localize"):
+            loc = localize_test(
+                self.rpn, feats, img_h, img_w, self.cfg,
+                self.cfg.anchor_tensor(images.device),
+                nms_thresh=rpn_nms_thresh, max_proposals=max_proposals)
         B, K = loc.roi_boxes.shape[:2]
-        codes = self.recog(loc.roi_feats.flatten(0, 1))
-        scores = self._linear(codes, self.obj_w, self.obj_b)[:, 0].reshape(B, K)
-        trans = self._linear(codes, self.box_w, self.box_b).reshape(B, K, 4)
-        boxes = apply_box_transform(loc.roi_boxes, trans)
+        with span("recog"):
+            codes = self.recog(loc.roi_feats.flatten(0, 1))
+            scores = self._linear(codes, self.obj_w,
+                                  self.obj_b)[:, 0].reshape(B, K)
+            trans = self._linear(codes, self.box_w,
+                                 self.box_b).reshape(B, K, 4)
+            boxes = apply_box_transform(loc.roi_boxes, trans)
         return loc.roi_valid, codes.reshape(B, K, -1), scores, boxes
 
     @torch.inference_mode()
@@ -153,30 +165,32 @@ class DenseCap(nn.Module):
         cfg = self.cfg
         final_nms = (cfg.test_final_nms_thresh if final_nms_thresh is None
                      else final_nms_thresh)
-        valid, codes, scores, boxes = self._detect(
-            images, img_h, img_w, rpn_nms_thresh, max_proposals)
-        B, K = scores.shape
-        if cfg.clip_final_boxes:
-            boxes, _ = clip_boxes(boxes, img_w.float()[:, None],
-                                  img_h.float()[:, None])
-        if final_nms > 0:
-            idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores, final_nms,
-                             K, valid=valid)
-            boxes, scores, codes = (gather_rows(x, idx)
-                                    for x in (boxes, scores, codes))
+        with span("infer.forward", images.device):
+            valid, codes, scores, boxes = self._detect(
+                images, img_h, img_w, rpn_nms_thresh, max_proposals)
+            B, K = scores.shape
+            with span("final_nms"):
+                if cfg.clip_final_boxes:
+                    boxes, _ = clip_boxes(boxes, img_w.float()[:, None],
+                                          img_h.float()[:, None])
+                if final_nms > 0:
+                    idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores,
+                                     final_nms, K, valid=valid)
+                    boxes, scores, codes = (gather_rows(x, idx)
+                                            for x in (boxes, scores, codes))
 
-        if use_beam > 0:
-            captions, lps, _ = self.lm.beamsearch(
-                codes.reshape(B * K, -1), cfg.seq_length, use_beam)
-        else:
-            captions, lps = self.lm.greedy_decode(codes.reshape(B * K, -1),
-                                                  cfg.seq_length)
-        T = captions.shape[1]
-        return TestOutput(
-            boxes=boxes, scores=scores,
-            captions=captions.reshape(B, K, T),
-            caption_logprobs=lps.reshape(B, K, T),
-            valid=valid, num=valid.sum(1, dtype=torch.int32))
+            if use_beam > 0:
+                captions, lps, _ = self.lm.beamsearch(
+                    codes.reshape(B * K, -1), cfg.seq_length, use_beam)
+            else:
+                captions, lps = self.lm.greedy_decode(
+                    codes.reshape(B * K, -1), cfg.seq_length)
+            T = captions.shape[1]
+            return TestOutput(
+                boxes=boxes, scores=scores,
+                captions=captions.reshape(B, K, T),
+                caption_logprobs=lps.reshape(B, K, T),
+                valid=valid, num=valid.sum(1, dtype=torch.int32))
 
     @torch.inference_mode()
     def extract_features(self, images, img_h, img_w, *,
@@ -188,7 +202,10 @@ class DenseCap(nn.Module):
         codes (B, max_boxes, fc_dim) and `valid` (B, max_boxes); padded
         slots repeat the top box.
         """
-        valid, codes, scores, boxes = self._detect(images, img_h, img_w)
-        idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores, final_nms_thresh,
-                         max_boxes, valid=valid)
-        return gather_rows(boxes, idx), gather_rows(codes, idx), valid
+        with span("infer.forward", images.device):
+            valid, codes, scores, boxes = self._detect(images, img_h, img_w)
+            with span("final_nms"):
+                idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores,
+                                 final_nms_thresh, max_boxes, valid=valid)
+                return (gather_rows(boxes, idx), gather_rows(codes, idx),
+                        valid)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.profiling import host_read, span
 from .vgg16 import dot_f32, frozen
 
 
@@ -87,30 +88,31 @@ class LanguageModel(nn.Module):
         A row's tokens after its first END are END and its logprobs there
         are 0; argmax takes the first maximum.
         """
-        P = vectors.shape[0]
-        T = int(seq_length)
-        END = self.vocab_size + 1
-        dev = vectors.device
-        H = self.Wh.shape[0]
-        zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
-        h, c = self.lstm_step(zeros, zeros, self.encode_image(vectors))
-        tok = torch.full((P,), END, dtype=torch.long, device=dev)
-        seq = torch.full((P, T), END, dtype=torch.int32, device=dev)
-        lps = torch.zeros((P, T), dtype=torch.float32, device=dev)
-        done = torch.zeros((P,), dtype=torch.bool, device=dev)
-        for t in range(T):
-            if bool(done.all()):
-                break
-            h, c = self.lstm_step(h, c, self.embed(tok))
-            scores = self.project(h)
-            nxt0 = scores.argmax(dim=-1)
-            lp = torch.log_softmax(scores, dim=-1).gather(
-                1, nxt0[:, None])[:, 0]
-            tok = torch.where(done, END, nxt0 + 1)
-            seq[:, t] = tok.to(torch.int32)
-            lps[:, t] = torch.where(done, 0.0, lp)
-            done = done | (tok == END)
-        return seq, lps
+        with span("decode", vectors.device):
+            P = vectors.shape[0]
+            T = int(seq_length)
+            END = self.vocab_size + 1
+            dev = vectors.device
+            H = self.Wh.shape[0]
+            zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
+            h, c = self.lstm_step(zeros, zeros, self.encode_image(vectors))
+            tok = torch.full((P,), END, dtype=torch.long, device=dev)
+            seq = torch.full((P, T), END, dtype=torch.int32, device=dev)
+            lps = torch.zeros((P, T), dtype=torch.float32, device=dev)
+            done = torch.zeros((P,), dtype=torch.bool, device=dev)
+            for t in range(T):
+                if host_read("decode.reads", done.all()):
+                    break
+                h, c = self.lstm_step(h, c, self.embed(tok))
+                scores = self.project(h)
+                nxt0 = scores.argmax(dim=-1)
+                lp = torch.log_softmax(scores, dim=-1).gather(
+                    1, nxt0[:, None])[:, 0]
+                tok = torch.where(done, END, nxt0 + 1)
+                seq[:, t] = tok.to(torch.int32)
+                lps[:, t] = torch.where(done, 0.0, lp)
+                done = done | (tok == END)
+            return seq, lps
 
     def beamsearch(self, vectors, seq_length, beam_size, early_exit=True):
         """Beam search over (P, D) RoI codes (twin of
@@ -128,67 +130,70 @@ class LanguageModel(nn.Module):
         against one search per image: steps after a row finishes only
         rewrite positions past its END.
         """
-        P, T, B = vectors.shape[0], int(seq_length), int(beam_size)
-        END = self.vocab_size + 1
-        dev = vectors.device
-        H = self.Wh.shape[0]
-        zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
-        h, c = self.lstm_step(zeros, zeros, self.encode_image(vectors))
-        h, c = self.lstm_step(
-            h, c, self.embed(torch.full((P,), END, device=dev)))
-        beam_lp, idx0 = torch.log_softmax(self.project(h), -1).topk(B, -1)
-        beams = torch.ones((P, B, T), dtype=torch.long, device=dev)
-        beams[:, :, 0] = idx0 + 1
-        lp_hist = torch.zeros((P, B, T), dtype=torch.float32, device=dev)
-        lp_hist[:, :, 0] = beam_lp
-        h = h.repeat_interleave(B, 0)
-        c = c.repeat_interleave(B, 0)
-        row0 = B * torch.arange(P, device=dev)[:, None]
-        spare_words = torch.arange(B, device=dev)
-        for t in range(1, T):
-            finished = (beams == END).any(2)                  # (P, B)
-            if early_exit and bool(finished.all()):
-                break
-            words = beams[:, :, t - 1].reshape(-1)
-            h, c = self.lstm_step(h, c, self.embed(words))
-            scores = self.project(h)                          # (P*B, V+1)
-            # Per-beam top-k of the raw logits; log_softmax is a shift per
-            # row, applied to the k survivors only. Ties among one row's
-            # logits are accidental, so torch.topk's order is enough here.
-            top_raw, top_words = scores.topk(B, -1)
-            top_lp = (top_raw - torch.logsumexp(scores, -1, keepdim=True)
-                      ).reshape(P, B, B)
-            top_words = top_words.reshape(P, B, B)
-            alive = ~finished[:, :, None]
-            top_lp = torch.where(alive, top_lp, 0.0)
-            top_words = torch.where(alive, top_words, spare_words)
-            cand = (beam_lp[:, :, None] + top_lp).reshape(P, B * B)
-            # Every finished beam offers B equal candidates, so ties here
-            # are systematic. lax.top_k takes the lower index first among
-            # ties and torch.topk promises no order, so this top-k is a
-            # stable ascending sort of the negated candidates.
-            neg_lp, flat = torch.sort(-cand, dim=1, stable=True)
-            new_lp, flat = -neg_lp[:, :B], flat[:, :B]
-            src = flat // B                                   # (P, B)
-            take = src[:, :, None].expand(P, B, T)
-            beams = beams.gather(1, take)
-            beams[:, :, t] = top_words.reshape(P, B * B).gather(1, flat) + 1
-            lp_hist = lp_hist.gather(1, take)
-            lp_hist[:, :, t] = new_lp - beam_lp.gather(1, src)
-            beam_lp = new_lp
-            rows = (src + row0).reshape(-1)
-            h, c = h[rows], c[rows]
-        best = beam_lp.argmax(1)
-        score = beam_lp.gather(1, best[:, None])[:, 0]
-        pick = best[:, None, None].expand(P, 1, T)
-        seq = beams.gather(1, pick)[:, 0]
-        lps = lp_hist.gather(1, pick)[:, 0]
-        is_end = seq == END
-        first_end = is_end.to(torch.int32).argmax(1, keepdim=True)
-        after = is_end.any(1, keepdim=True) & (
-            torch.arange(T, device=dev)[None] > first_end)
-        return (torch.where(after, END, seq).to(torch.int32),
-                torch.where(after, 0.0, lps), score)
+        with span("decode", vectors.device):
+            P, T, B = vectors.shape[0], int(seq_length), int(beam_size)
+            END = self.vocab_size + 1
+            dev = vectors.device
+            H = self.Wh.shape[0]
+            zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
+            h, c = self.lstm_step(zeros, zeros, self.encode_image(vectors))
+            h, c = self.lstm_step(
+                h, c, self.embed(torch.full((P,), END, device=dev)))
+            beam_lp, idx0 = torch.log_softmax(self.project(h), -1).topk(B, -1)
+            beams = torch.ones((P, B, T), dtype=torch.long, device=dev)
+            beams[:, :, 0] = idx0 + 1
+            lp_hist = torch.zeros((P, B, T), dtype=torch.float32, device=dev)
+            lp_hist[:, :, 0] = beam_lp
+            h = h.repeat_interleave(B, 0)
+            c = c.repeat_interleave(B, 0)
+            row0 = B * torch.arange(P, device=dev)[:, None]
+            spare_words = torch.arange(B, device=dev)
+            for t in range(1, T):
+                finished = (beams == END).any(2)                  # (P, B)
+                if early_exit and host_read("decode.reads",
+                                        finished.all()):
+                    break
+                words = beams[:, :, t - 1].reshape(-1)
+                h, c = self.lstm_step(h, c, self.embed(words))
+                scores = self.project(h)                          # (P*B, V+1)
+                # Per-beam top-k of the raw logits; log_softmax is a shift per
+                # row, applied to the k survivors only. Ties among one row's
+                # logits are accidental, so torch.topk's order is enough here.
+                top_raw, top_words = scores.topk(B, -1)
+                top_lp = (top_raw - torch.logsumexp(scores, -1, keepdim=True)
+                          ).reshape(P, B, B)
+                top_words = top_words.reshape(P, B, B)
+                alive = ~finished[:, :, None]
+                top_lp = torch.where(alive, top_lp, 0.0)
+                top_words = torch.where(alive, top_words, spare_words)
+                cand = (beam_lp[:, :, None] + top_lp).reshape(P, B * B)
+                # Every finished beam offers B equal candidates, so ties here
+                # are systematic. lax.top_k takes the lower index first among
+                # ties and torch.topk promises no order, so this top-k is a
+                # stable ascending sort of the negated candidates.
+                neg_lp, flat = torch.sort(-cand, dim=1, stable=True)
+                new_lp, flat = -neg_lp[:, :B], flat[:, :B]
+                src = flat // B                                   # (P, B)
+                take = src[:, :, None].expand(P, B, T)
+                beams = beams.gather(1, take)
+                beams[:, :, t] = top_words.reshape(P, B * B).gather(
+                    1, flat) + 1
+                lp_hist = lp_hist.gather(1, take)
+                lp_hist[:, :, t] = new_lp - beam_lp.gather(1, src)
+                beam_lp = new_lp
+                rows = (src + row0).reshape(-1)
+                h, c = h[rows], c[rows]
+            best = beam_lp.argmax(1)
+            score = beam_lp.gather(1, best[:, None])[:, 0]
+            pick = best[:, None, None].expand(P, 1, T)
+            seq = beams.gather(1, pick)[:, 0]
+            lps = lp_hist.gather(1, pick)[:, 0]
+            is_end = seq == END
+            first_end = is_end.to(torch.int32).argmax(1, keepdim=True)
+            after = is_end.any(1, keepdim=True) & (
+                torch.arange(T, device=dev)[None] > first_end)
+            return (torch.where(after, END, seq).to(torch.int32),
+                    torch.where(after, 0.0, lps), score)
 
 
 def get_target(gt_seq, vocab_size):

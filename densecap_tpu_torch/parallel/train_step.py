@@ -50,6 +50,7 @@ import torch.distributed as dist
 from . import distributed
 from .mesh import map_moments, shard_optimizer_state
 from ..utils.image import normalize_uint8_images
+from ..utils.profiling import span
 
 
 def param_zones(model):
@@ -213,33 +214,42 @@ class Trainer:
         gt_boxes, gt_labels, gt_valid, and optionally weight). Returns the
         batch-mean losses as detached scalars; distributed, the global
         batch's, the same on every rank."""
-        self.opt.zero_grad(set_to_none=True)
-        denom = None
-        if self.distributed:
-            w = batch.get("weight")
-            denom = (w.float().sum() if w is not None else torch.tensor(
-                float(batch["image"].shape[0]), device=batch["image"].device))
-            dist.all_reduce(denom, group=self.group)
-            denom = torch.clamp(denom, min=1.0)
-        losses = batched_loss(self.model, batch, generator, debug_sampler,
-                              denom=denom)
-        losses["total_loss"].backward()
+        with span("train.step", batch["image"].device):
+            self.opt.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                denom = None
+                if self.distributed:
+                    w = batch.get("weight")
+                    denom = (w.float().sum() if w is not None
+                             else torch.tensor(float(batch["image"].shape[0]),
+                                               device=batch["image"].device))
+                    dist.all_reduce(denom, group=self.group)
+                    denom = torch.clamp(denom, min=1.0)
+                losses = batched_loss(self.model, batch, generator,
+                                      debug_sampler, denom=denom)
+            with span("train.backward"):
+                losses["total_loss"].backward()
+            with span("train.optimizer"):
+                self._update()
+            out = {k: v.detach() for k, v in losses.items()}
+            if self.distributed:
+                vals = torch.stack(list(out.values()))
+                dist.all_reduce(vals, group=self.group)
+                out = dict(zip(out, vals.unbind()))
+            return out
+
+    def _update(self):
+        """The gradients' fill-in, their reduction over the ranks (the
+        `train.grad_reduce` span), weight decay and Adam's step."""
         trainable = self.main + (self.cnn if self.finetune_cnn else [])
         wd = self.model.cfg.weight_decay
         with torch.no_grad():
             for p in trainable:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            if self.distributed:
-                # one buffer, flattened in the zones' order (the same on
-                # every rank: the flip happens at the same step on all)
-                flat = torch.cat([p.grad.reshape(-1) for p in trainable])
-                dist.all_reduce(flat, group=self.group)
-                for p, g in zip(trainable, flat.split(
-                        [p.numel() for p in trainable])):
-                    p.grad.copy_(g.view_as(p.grad))
-            if self.shards:
-                self._share_replicated_grads(trainable)
+            if self.distributed or self.shards:
+                with span("train.grad_reduce"):
+                    self._reduce_grads(trainable)
             for p in trainable:
                 p.grad.add_(p, alpha=wd)
         lr = self.lr_at(self.count)
@@ -247,9 +257,15 @@ class Trainer:
             group["lr"] = lr
         self.opt.step()
         self.count += 1
-        out = {k: v.detach() for k, v in losses.items()}
+
+    def _reduce_grads(self, trainable):
         if self.distributed:
-            vals = torch.stack(list(out.values()))
-            dist.all_reduce(vals, group=self.group)
-            out = dict(zip(out, vals.unbind()))
-        return out
+            # one buffer, flattened in the zones' order (the same on every
+            # rank: the flip happens at the same step on all)
+            flat = torch.cat([p.grad.reshape(-1) for p in trainable])
+            dist.all_reduce(flat, group=self.group)
+            for p, g in zip(trainable, flat.split(
+                    [p.numel() for p in trainable])):
+                p.grad.copy_(g.view_as(p.grad))
+        if self.shards:
+            self._share_replicated_grads(trainable)

@@ -628,3 +628,25 @@ def test_codec_h5_into_a_train_step(dev, tmp_path):
     assert all(bool(torch.isfinite(v)) for v in losses.values())
     assert build.launches["roi_align"] >= 1
     assert build.launches["roi_align_bwd"] >= 1
+
+
+def test_span_device_time_on_the_card(dev):
+    """A span on the card times its stream with an event pair that its
+    children share the device of, resolved once the stream has passed its
+    end marker and never by a wait of its own: a ~50 ms sleep on the
+    stream lies inside its device time, not its host time."""
+    from densecap_tpu_torch.utils import profiling as prof
+
+    was = prof.set_recording(True)
+    try:
+        with prof.span("outer", dev) as outer:
+            with prof.span("inner") as inner:
+                torch.cuda._sleep(100_000_000)
+        assert outer.device_ms is None and inner.device_ms is None
+        s = prof.STORE.summary("inner", parent="outer", start_ns=outer.t0)
+    finally:
+        prof.set_recording(was)
+    assert s["count"] == 1
+    assert inner.device_ms == s["device_ms"] > 20
+    assert outer.device_ms >= inner.device_ms
+    assert outer.host_ms < inner.device_ms / 2
