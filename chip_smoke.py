@@ -19,8 +19,8 @@ its result on its own line; any failure raises and exits non-zero:
   1. device: the card's name and power limit;
   2. build: the kernels of densecap_tpu_torch/ops/cuda (one nvcc per
      source, in parallel); the count of HGMMA (wgmma) instructions in the
-     SASS of K3's bf16 kernel, which must not be 0, and the global
-     reductions of each K2b instance;
+     SASS of K3's bf16 kernel and of K4 (G = 1 and 2 warpgroups), none of
+     which may be 0, and the global reductions of each K2b instance;
   3. K1 (NMS) against its plain PyTorch version at the serving shapes and
      at extract_features' (1000 unsorted -> 100 at 0.4), picks required
      identical; per shape the C launch alone ("kernel_ms": on inputs the
@@ -43,6 +43,14 @@ its result on its own line; any failure raises and exits non-zero:
      trunk1's bf16
      forward at B = 8 (720 px canvas, 540x720 frames) with K3 and with
      cuDNN, printed only;
+  5b. K4 (the greedy decode's vocab head) at P = 8000 (the B = 8
+     forward) and P = 50 (the webcam server), V + 1 = 10 001, K = 512,
+     bf16 W, a quarter of the rows already done: tokens identical to the
+     plain head wherever its top-2 gap exceeds 1e-3, logprobs within
+     1e-4, done rows END and 0; the launch alone (20 in a CUDA graph),
+     one call through the wrapper, the plain head, the bound, and the
+     library chain the port no longer calls (torch.mm with an f32
+     output, + b, argmax, log_softmax and gather);
   6. K2b (RoI-align backward) at the training shape, on the square's
      and the bucket's map, against plain
      autograd, in both instances (the positions alone, as while the
@@ -56,8 +64,8 @@ its result on its own line; any failure raises and exits non-zero:
      scripts/torch_k2b_alone.py in its own process;
   7. the full-width engine (VGG-16, fc 4096, vocab 10 000, 720 px canvas,
      1000 proposals, bf16, random weights from seed 0): 32 concurrent
-     720x540 frames at batch 8, then frames at batch 1; K1 and K2 must
-     launch on this path. A 720x10 frame (feature extent 0) is answered
+     720x540 frames at batch 8, then frames at batch 1; K1, K2 and K4
+     must launch on this path. A 720x10 frame (feature extent 0) is answered
      with no regions, as the JAX package answers it, at batch 1 and in a
      batch of 8, and the normal frames after and beside it as before. A
      small f32 model on the card is held against the same model on the
@@ -454,6 +462,15 @@ def phase_build():
     print(f"[build] K3 bf16 kernel SASS: HGMMA (wgmma) instructions {counts}")
     if len(counts) != 2 or not all(counts.values()):
         raise AssertionError(f"K3's bf16 kernel issues no wgmma: {counts}")
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "greedy_head_kernel" in name:
+            counts["G=" + re.search(r"ILi(\d+)E", name).group(1)] = len(
+                re.findall(r"\bHGMMA\.", fn))
+    print(f"[build] K4 kernel SASS: HGMMA (wgmma) instructions {counts}")
+    if len(counts) != 2 or not all(counts.values()):
+        raise AssertionError(f"K4 issues no wgmma: {counts}")
     # K2b's d feats scatter: the global reductions and atomics each
     # instance compiles to (float4 instance: one vector RED per column)
     reds = {}
@@ -726,6 +743,95 @@ def phase_conv_pool(dev):
                             "conv, the bias, ReLU, the extent mask and the "
                             "max pool are separate calls ([K3 trunk1] times "
                             "trunk1 that way)",
+            "shapes": shapes}
+
+
+def greedy_head_library(h, w, b):
+    """The vocab head as PyTorch calls it (K4's yardstick; the port no
+    longer calls it on K4's path): tokens and their logprobs."""
+    scores = torch.mm(h.bfloat16(), w, out_dtype=torch.float32) + b
+    arg = scores.argmax(dim=-1)
+    return arg, torch.log_softmax(scores, dim=-1).gather(1, arg[:, None])
+
+
+def phase_greedy_head(dev):
+    """K4 at the decode's two main shapes against the plain head."""
+    from densecap_tpu_torch.models.vgg16 import dot_f32
+    from densecap_tpu_torch.ops import greedy_head as gh
+
+    K, N, T = FLAGSHIP.rnn_size, FLAGSHIP.vocab_size + 1, FLAGSHIP.seq_length
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, shapes = 0.0, []
+    for P in (B * FLAGSHIP.test_max_proposals, 50):
+        g = torch.Generator(device=dev).manual_seed(P)
+        h = torch.rand((P, K), generator=g, device=dev) * 2 - 1
+        w = ((torch.rand((K, N), generator=g, device=dev) * 2 - 1)
+             * (4 / K ** 0.5)).bfloat16()
+        b = (torch.rand(N, generator=g, device=dev) * 2 - 1) * 0.1
+        b[-1] = 4.5  # END wins some rows
+        done0 = torch.rand(P, generator=g, device=dev) < 0.25
+
+        def state():
+            return (done0.clone(),
+                    torch.full((P, T), -1, dtype=torch.int32, device=dev),
+                    torch.zeros((P, T), device=dev))
+
+        with torch.no_grad():
+            d_p, s_p, l_p = state()
+            tok_p = gh.greedy_head_plain(h, w, b, d_p, s_p, l_p, 0, N)
+            head = gh.prepare(w, b, P)
+            d_k, s_k, l_k = state()
+            tok_k = gh.greedy_head_cuda(head, h, d_k, s_k, l_k, 0, N).clone()
+            torch.cuda.synchronize()
+            top = (dot_f32(h, w, torch.bfloat16) + b).topk(2, dim=1).values
+            clear = top[:, 0] - top[:, 1] > 1e-3
+            same = bool(torch.equal(tok_k[clear], tok_p[clear])
+                        and torch.equal(d_k[clear], d_p[clear])
+                        and torch.equal(s_k[clear], s_p[clear]))
+            done_ok = bool((tok_k[done0] == N).all()
+                           and (l_k[done0, 0] == 0).all()
+                           and torch.equal(d_k, done0 | (tok_k == N)))
+            err = float((l_k[:, 0] - l_p[:, 0])[clear].abs().max())
+            near = int((~clear).sum())
+            ends = int((tok_k[~done0] == N).sum())
+            d, s_, l = state()
+            kern_ms = graph_ms(
+                lambda: gh.greedy_head_cuda(head, h, d, s_, l, 0, N))
+            k_ms = cuda_ms(lambda: gh.greedy_head_cuda(head, h, d, s_, l, 0, N))
+            p_ms = cuda_ms(lambda: gh.greedy_head_plain(h, w, b, d, s_, l, 0, N))
+            lib_ms = cuda_ms(lambda: greedy_head_library(h, w, b))
+            del d, s_, l, head
+        # h in f32, W in bf16 and b once; per row the token (int64),
+        # seq (int32) and lps (f32) entries and done read and written
+        b_ms, b_by = bound_ms(P * K * 4 + K * N * 2 + N * 4 + P * 18,
+                              2 * P * K * N, H100_BF16_TFLOPS)
+        G, S = gh.plan(P, K, N, sms)
+        label = f"P={P} K={K} V+1={N} bf16 (G={G}, S={S})"
+        print(f"[K4 greedy_head] {label}: tokens identical to plain outside "
+              f"near ties={same} ({near} rows with a top-2 gap <= 1e-3), "
+              f"done rows END and 0={done_ok}, END won {ends} rows; "
+              f"logprob max abs err {err:.3e} (limit 1e-4); kernel alone "
+              f"{kern_ms:.4f} ms = {2 * P * K * N / kern_ms / 1e9:.1f} "
+              f"TFLOP/s, through the wrapper {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, library chain {lib_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}) = {b_ms / kern_ms:.1%} of the kernel "
+              f"alone")
+        if not (same and done_ok and err <= 1e-4):
+            raise AssertionError(f"K4 disagrees with plain at P = {P}")
+        worst = max(worst, err)
+        shapes.append({"shape": label, "kernel_ms": kern_ms, "ms": k_ms,
+                       "plain_ms": p_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "near_ties": near})
+    main = shapes[0]
+    return {"max_abs_err": worst, "kernel_ms": main["kernel_ms"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_note": "torch.mm(out_dtype=float32) + b, argmax, "
+                            "log_softmax and gather at the argmax, without "
+                            "the bookkeeping; the port does not call it on "
+                            "K4's path",
             "shapes": shapes}
 
 
@@ -1007,7 +1113,8 @@ def phase_engine(dev, params, cfg=FLAGSHIP, frame_hw=(540, 720)):
         print(f"[engine] peak device memory {peak / 2**30:.2f} GiB; "
               f"kernel launches on this path {launches}; "
               f"boxes/frame {[len(r['boxes']) for r in results[:4]]}")
-        if not (launches["nms"] > 0 and launches["roi_align"] > 0):
+        if not (launches["nms"] > 0 and launches["roi_align"] > 0
+                and launches["greedy_head"] > 0):
             raise AssertionError(f"a kernel never launched: {launches}")
 
         with torch.inference_mode():
@@ -4099,6 +4206,7 @@ def main(argv=None):
     k1 = phase_nms(dev)
     k2 = phase_roi(dev)
     k3 = phase_conv_pool(dev)
+    k4 = phase_greedy_head(dev)
     k2b = phase_roi_bwd(dev, args.before)
     phase_reference(dev)
     t0 = time.perf_counter()
@@ -4225,6 +4333,13 @@ def main(argv=None):
          "launches_by_path": {p: paths[p]["conv_pool"]
                               for p in train_paths},
          **k3},
+        {"name": "greedy_head", "route": "cuda",
+         "source": "densecap_tpu_torch/ops/cuda/greedy_head.cu",
+         "replaces": "none: the head of densecap_tpu/models/lstm.py:"
+                     "_greedy_decode, which the JAX package leaves to XLA",
+         "launches": serve["greedy_head"],
+         "launches_by_path": {p: c["greedy_head"] for p, c in paths.items()},
+         **k4},
     ]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..utils.profiling import host_read, span
-from .vgg16 import dot_f32, frozen
+from ..ops import greedy_head
+from ..utils.profiling import count, host_read, span
+from .vgg16 import Linear, dot_f32, frozen
 
 
 class LanguageModel(nn.Module):
@@ -81,12 +82,23 @@ class LanguageModel(nn.Module):
         hs = torch.stack(hs, 1)
         return self.project(hs.flatten(0, 1)).reshape(N, T + 2, -1)
 
+    def head_on_card(self, device):
+        """Whether a greedy decode on `device` takes kernel K4 for its vocab
+        head: on a CUDA device, in bf16, with a full-precision projection
+        that is not a tensor-parallel shard. Every other case (the CPU,
+        f32 compute, int8, a shard) keeps `project` and PyTorch's argmax and
+        log-softmax."""
+        return (device.type == "cuda" and self.compute_dtype == torch.bfloat16
+                and isinstance(self.proj, Linear) and self.proj.shard is None)
+
     def greedy_decode(self, vectors, seq_length):
         """(P, D) RoI codes -> tokens (P, T) int32 and logprobs (P, T) f32.
 
         Stops once every row has emitted END (one host read per step).
         A row's tokens after its first END are END and its logprobs there
-        are 0; argmax takes the first maximum.
+        are 0; argmax takes the first maximum. Where `head_on_card`, each
+        step's head is one launch of K4 (`ops/greedy_head.py`), counted as
+        `decode.head_steps`.
         """
         with span("decode", vectors.device):
             P = vectors.shape[0]
@@ -94,6 +106,8 @@ class LanguageModel(nn.Module):
             END = self.vocab_size + 1
             dev = vectors.device
             H = self.Wh.shape[0]
+            head = (greedy_head.prepare(self.proj.w, self.proj.b, P)
+                    if self.head_on_card(dev) else None)
             zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
             h, c = self.lstm_step(zeros, zeros, self.encode_image(vectors))
             tok = torch.full((P,), END, dtype=torch.long, device=dev)
@@ -104,14 +118,13 @@ class LanguageModel(nn.Module):
                 if host_read("decode.reads", done.all()):
                     break
                 h, c = self.lstm_step(h, c, self.embed(tok))
-                scores = self.project(h)
-                nxt0 = scores.argmax(dim=-1)
-                lp = torch.log_softmax(scores, dim=-1).gather(
-                    1, nxt0[:, None])[:, 0]
-                tok = torch.where(done, END, nxt0 + 1)
-                seq[:, t] = tok.to(torch.int32)
-                lps[:, t] = torch.where(done, 0.0, lp)
-                done = done | (tok == END)
+                if head is not None:
+                    tok = greedy_head.greedy_head_cuda(head, h, done, seq, lps,
+                                                       t, END)
+                    count("decode.head_steps")
+                else:
+                    tok = greedy_head.greedy_step(self.project(h), done, seq,
+                                                  lps, t, END)
             return seq, lps
 
     def beamsearch(self, vectors, seq_length, beam_size, early_exit=True):

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels; count their launches.
 
-The `.cu` files beside this module compile with nvcc into one shared
-library with a plain C interface, loaded with ctypes. The library is
-named by a hash of its sources and flags, so an edit rebuilds, and lives
-in `build/torch_kernels/` at the root of the checkout. Nothing is built
+The `.cu` files beside this module (and the `.cuh` header two of them
+share) compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes. The library is named by a hash of its
+sources and flags, so an edit rebuilds, and lives in
+`build/torch_kernels/` at the root of the checkout. Nothing is built
 when this module is imported: `load()` builds on first use, on a machine
 with the CUDA toolkit.
 """
@@ -21,7 +22,9 @@ import time
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "nms.cu", _HERE / "roi_align.cu", _HERE / "conv_pool.cu")
+SOURCES = (_HERE / "nms.cu", _HERE / "roi_align.cu", _HERE / "conv_pool.cu",
+           _HERE / "greedy_head.cu")
+HEADERS = (_HERE / "hopper.cuh",)  # included by conv_pool.cu, greedy_head.cu
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
 
 # -fmad=false: no FMA contraction, so the NMS IoU rounds exactly as the
@@ -39,7 +42,7 @@ build_seconds = None
 # position gradients alone (roi_align_bwd, the trunk frozen) and with the
 # feature gradient (roi_align_bwd_feats).
 launches = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
-            "roi_align_bwd_feats": 0, "conv_pool": 0}
+            "roi_align_bwd_feats": 0, "conv_pool": 0, "greedy_head": 0}
 
 
 def reset_launches():
@@ -69,7 +72,7 @@ def _nvcc():
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdc_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -124,6 +127,9 @@ def load():
         lib.dc_conv_relu_pool.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                           vp, vp]
         lib.dc_conv_relu_pool.restype = ci
+        lib.dc_greedy_head.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp,
+                                       vp, vp, vp, ci, ci, vp, ci, vp]
+        lib.dc_greedy_head.restype = ci
         _lib = lib
         return lib
 

@@ -78,10 +78,11 @@
 #include <atomic>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kChunk = 64;                  // channels per K chunk, N block
-constexpr int kMaxDevices = 64;             // per-device launch set-up
 constexpr int kRowBytes = kChunk * 2;       // one 128 B swizzle row
 constexpr int kTapBytes = kChunk * kRowBytes;  // 64 x 64 weights of a tap
 constexpr int kTileCols = 32;               // conv columns per tile
@@ -106,41 +107,6 @@ struct Bf16Smem {
   static constexpr int kBars = kPool + 8 * kPoolStage;
   static constexpr int kBytes = kBars + 2 * kGroups * kStages * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
 
 // TMA load of one box of the 4-D (C, W, H, B) input; coordinates out of
 // range (negative ones included) read as zeros.
@@ -168,22 +134,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr));
 }
 
-// Shared-memory descriptor of a 128-byte swizzled K-major operand whose
-// 8-row atoms are 1024 B apart.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma's fences and waits.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d += a (64 x 16, registers) * b (16 x 64, shared memory descriptor).
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
                                                 const uint32_t (&a)[4],
@@ -205,19 +155,6 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
@@ -510,33 +447,6 @@ conv_pool_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     if (!(prow_ok && (float)pc < fw)) m = 0.0f;
     out[(((size_t)b * Ho + p) * Wo + pc) * C + co] = m;
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda: its address comes from the
-// runtime's entry-point query, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The NHWC input as a 4-D (C, W, H, B) map, read in boxes of 64 channels x

@@ -10,7 +10,10 @@ These are the checks of chip_smoke.py's kernel phases at smaller
 shapes: NMS picks identical, RoI align within 1e-5 on unit-scale
 features and its backward (K2b) within 1e-5 (d feats) and 1e-4 (d boxes)
 of the plain autograd gradient's scale, the fused conv+pool (K3) in f32 within 1e-4 and in
-bf16 no worse than the plain version against an f32 oracle, and each
+bf16 no worse than the plain version against an f32 oracle, the greedy
+decode's vocab head (K4) with the plain head's tokens outside near ties,
+its first index on ties and its logprobs within 1e-4, alone and through
+a whole decode, and each
 wrapper counting exactly its own launches; the int8 product of
 `ops/quant.py` on the card identical to the CPU's; each kernel launched
 on its tensors' device from a thread whose current device is another
@@ -650,3 +653,161 @@ def test_span_device_time_on_the_card(dev):
     assert inner.device_ms == s["device_ms"] > 20
     assert outer.device_ms >= inner.device_ms
     assert outer.host_ms < inner.device_ms / 2
+
+
+# K4: the greedy decode's vocab head at the model's widths
+HEAD_K, HEAD_N, HEAD_T = 512, 10001, 15
+
+
+def _head_inputs(dev, P, seed, K=HEAD_K, N=HEAD_N):
+    """h in the LSTM's range, W (bf16) and b giving logits of spread ~1.3,
+    END's bias raised so that it wins some rows, a quarter of the rows
+    already done."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.rand((P, K), generator=g, device=dev) * 2 - 1
+    w = ((torch.rand((K, N), generator=g, device=dev) * 2 - 1)
+         * (4 / K ** 0.5)).bfloat16()
+    b = (torch.rand(N, generator=g, device=dev) * 2 - 1) * 0.1
+    b[-1] = 4.5
+    done = torch.rand(P, generator=g, device=dev) < 0.25
+    return h, w, b, done
+
+
+def _clear_rows(h, w, b, tol=1e-3):
+    """Rows whose plain top-2 logit gap exceeds `tol`."""
+    from densecap_tpu_torch.models.vgg16 import dot_f32
+
+    top = (dot_f32(h, w, torch.bfloat16) + b).topk(2, dim=1).values
+    return top[:, 0] - top[:, 1] > tol
+
+
+def _heads(h, w, b, done0, steps, head=None):
+    """`steps` head calls at columns 4, 5, ... on one state: the plain
+    version, or K4 on `head`. -> (tokens of each step, seq, lps, done)."""
+    from densecap_tpu_torch.ops import greedy_head as gh
+
+    P, N = h.shape[0], w.shape[1]
+    done = done0.clone()
+    seq = torch.full((P, HEAD_T), -1, dtype=torch.int32, device=h.device)
+    lps = torch.full((P, HEAD_T), 7.0, device=h.device)
+    toks = []
+    for t in range(4, 4 + steps):
+        if head is None:
+            tok = gh.greedy_head_plain(h, w, b, done, seq, lps, t, N)
+        else:
+            tok = gh.greedy_head_cuda(head, h, done, seq, lps, t, N)
+        toks.append(tok.clone())
+    return toks, seq, lps, done
+
+
+@pytest.mark.parametrize("P, K, N", [
+    (1, HEAD_K, HEAD_N), (50, HEAD_K, HEAD_N), (1000, HEAD_K, HEAD_N),
+    (8000, HEAD_K, HEAD_N), (8001, HEAD_K, HEAD_N),
+    (20000, HEAD_K, HEAD_N),   # more row blocks than SMs: S = 1
+    (8000, 1024, HEAD_N),      # one warpgroup a block (G = 1)
+    (300, 64, 21),             # one vocab tile
+    (300, 36, 500),            # K neither a chunk nor 8 floats
+])
+def test_greedy_head_matches_plain(dev, P, K, N):
+    """K4 against the plain head, two steps on one state (the second
+    launch finds the tickets the first left): tokens equal wherever the
+    plain top-2 gap exceeds 1e-3, logprobs within 1e-4, done rows END and
+    0, `done` raised where END won, only the step's columns written, one
+    launch a step. At the model's widths and at the plan's other
+    corners."""
+    from densecap_tpu_torch.ops import greedy_head as gh
+
+    h, w, b, done0 = _head_inputs(dev, P, seed=P, K=K, N=N)
+    want = _heads(h, w, b, done0, 2)
+    head = gh.prepare(w, b, P)
+    build.reset_launches()
+    got = _heads(h, w, b, done0, 2, head)
+    torch.cuda.synchronize()
+    assert build.launches == dict(NONE, greedy_head=2)
+    clear = _clear_rows(h, w, b)
+    assert clear.float().mean() > 0.9
+    for tw, tg in zip(want[0], got[0]):
+        assert tg.dtype == torch.int64
+        assert torch.equal(tg[clear], tw[clear])
+    _, seq_w, lps_w, done_w = want
+    _, seq_g, lps_g, done_g = got
+    assert torch.equal(seq_g[clear], seq_w[clear])
+    assert (seq_g[:, :4] == -1).all() and (seq_g[:, 6:] == -1).all()
+    assert (lps_g[:, :4] == 7).all() and (lps_g[:, 6:] == 7).all()
+    assert float((lps_g - lps_w)[clear].abs().max()) <= 1e-4
+    assert (seq_g[:, 4:6][done0] == N).all()
+    assert (lps_g[:, 4:6][done0] == 0).all()
+    assert torch.equal(done_g, done0 | (got[0][0] == N) | (got[0][1] == N))
+    assert torch.equal(done_g[clear], done_w[clear])
+    if P >= 1000:  # END won some rows that were not done
+        assert (got[0][0][~done0] == N).any()
+
+
+@pytest.mark.parametrize("P", [50, 8000])
+@pytest.mark.parametrize("pair", [(5, 9), (100, 300), (10, 9990)])
+def test_greedy_head_first_index_on_ties(dev, P, pair):
+    """Two equal columns of W with equal biases, above every other score:
+    every row takes the first, within a tile (5, 9), across tiles (100,
+    300) and across vocab slices (10, 9990: slices of 39-40 tiles at
+    P = 8000, one tile a slice at P = 50), and its logprob is the plain
+    one."""
+    from densecap_tpu_torch.ops import greedy_head as gh
+
+    h, w, b, _ = _head_inputs(dev, P, seed=7)
+    j1, j2 = pair
+    w[:, j2] = w[:, j1]
+    b[j1] = b[j2] = 50.0
+    done0 = torch.zeros(P, dtype=torch.bool, device=dev)
+    want = _heads(h, w, b, done0, 1)
+    got = _heads(h, w, b, done0, 1, gh.prepare(w, b, P))
+    assert (got[0][0] == j1 + 1).all()
+    assert torch.equal(got[0][0], want[0][0])
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+
+
+def test_greedy_decode_k4_against_the_plain_head(dev, monkeypatch):
+    """A whole bf16 greedy decode at the model's widths (P = 1000, the
+    CLIs at batch 1; END raised so that rows finish at different steps):
+    K4's tokens equal those of the same decode whose heads are the plain
+    version, row by row up to the first step where the plain top-2 gap is
+    under 1e-3, logprobs within 1e-4 there; one launch a step run."""
+    from densecap_tpu_torch.models.vgg16 import dot_f32
+    from densecap_tpu_torch.ops import greedy_head as gh
+    from test_torch_greedy_head import make_lm, vectors
+
+    lm = make_lm(V=HEAD_N - 1, H=HEAD_K, D=4096, seed=11,
+                 end_bias=5.0).to(dev)
+    x = vectors(1000, 4096, 11).to(dev)
+    assert lm.head_on_card(dev)
+    build.reset_launches()
+    with torch.no_grad():
+        seq, lps = lm.greedy_decode(x, HEAD_T)
+    torch.cuda.synchronize()
+    is_end = seq == HEAD_N
+    assert is_end.any(1).any() and not is_end[:, 0].all()
+    first = torch.where(is_end.any(1), is_end.int().argmax(1), HEAD_T)
+    steps = min(int(first.max()) + 1, HEAD_T)
+    assert build.launches == dict(NONE, greedy_head=steps)
+
+    gaps = []
+
+    def plain(state, h, done, seq, lps, t, end):
+        top = (dot_f32(h, lm.proj.w, torch.bfloat16)
+               + lm.proj.b).topk(2, dim=1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        return gh.greedy_head_plain(h, lm.proj.w, lm.proj.b, done, seq, lps,
+                                    t, end)
+
+    monkeypatch.setattr(gh, "greedy_head_cuda", plain)
+    with torch.no_grad():
+        seq_p, lps_p = lm.greedy_decode(x, HEAD_T)
+    gaps = torch.stack(gaps, 1)
+    assert gaps.shape[1] == steps
+    differ = seq != seq_p
+    rows = differ.any(1)
+    at = differ.int().argmax(1)
+    assert float(rows.float().mean()) < 0.02
+    assert (gaps[rows, at[rows]] <= 1e-3).all()
+    cols = torch.arange(HEAD_T, device=dev)[None]
+    same = cols < torch.where(rows, at, HEAD_T)[:, None]
+    assert float((lps - lps_p).abs()[same].max()) <= 1e-4

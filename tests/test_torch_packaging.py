@@ -40,5 +40,5 @@ def test_port_dependencies_and_kernel_sources():
     assert "torch" in deps and not any(d.startswith("jax") for d in deps)
     patterns = PROJECT["tool"]["setuptools"]["package-data"][
         "densecap_tpu_torch.ops.cuda"]
-    for src in build.SOURCES:
+    for src in build.SOURCES + build.HEADERS:
         assert any(fnmatch.fnmatch(src.name, p) for p in patterns), src
