@@ -2429,6 +2429,65 @@ def phase_extract(dev, model):
     return counts
 
 
+VITDET = DenseCapConfig(trunk="vitdet_b", vocab_size=10000, image_size=1024,
+                        test_max_proposals=1000, test_pre_nms_topk=6000)
+
+
+def phase_vitdet(dev):
+    """[vitdet] ViTDet-B as the trunk at full width (init_params, seed 0):
+    B=8 1024 x 1024 canvases of 3:4 frames through the greedy
+    forward and extract_features (shapes, finite valid slots, K1 / K2
+    launches, time, peak memory), and one global block's attention core
+    (fused, bf16) against the plain f32 logits on the same operands for
+    one image's first two heads."""
+    from densecap_tpu_torch.models import vitdet
+
+    model = to_torch(init_params(VITDET, seed=0), VITDET, dev)
+    x, h, w = canvases(dev, B, 1024)
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = read_launches(lambda: model.forward_test_batch(x, h, w))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = cuda_ms(lambda: model.forward_test_batch(x, h, w), runs=5)
+    (boxes, codes, valid), _ = read_launches(
+        lambda: model.extract_features(x, h, w))
+    v = out.valid
+    ok = (out.boxes.shape == (B, 1000, 4) and bool(v.any(1).all())
+          and bool(torch.isfinite(out.boxes[v]).all())
+          and bool(torch.isfinite(out.scores[v]).all())
+          and codes.shape == (B, 100, 4096)
+          and bool(torch.isfinite(codes[valid]).all()))
+    blk = model.vit.blocks[VITDET.vit_global_blocks[0]]
+    a = blk.attn
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v_ = (torch.randn((1, 4096, 12, 64), generator=g, device=dev)
+                .mul_(0.5).bfloat16() for _ in range(3))
+    with torch.no_grad():
+        fused = vitdet.attention_core(q, k, v_, a.rel_h, a.rel_w, (64, 64),
+                                      torch.bfloat16)[:, :2].float()
+        qf, kf, vf = (t.transpose(1, 2)[:, :2].float() for t in (q, k, v_))
+        Rh = vitdet.rel_table(a.rel_h.float(), 64)
+        Rw = vitdet.rel_table(a.rel_w.float(), 64)
+        r = qf.reshape(1, 2, 64, 64, 64)
+        logits = ((qf * 0.125) @ kf.transpose(-1, -2)).reshape(
+            1, 2, 64, 64, 64, 64)
+        logits = (logits + torch.einsum("bnhwc,hkc->bnhwk", r, Rh)[..., None]
+                  + torch.einsum("bnhwc,wkc->bnhwk", r, Rw)[..., None, :])
+        plain = torch.softmax(logits.reshape(1, 2, 4096, 4096), -1) @ vf
+    err = float((fused - plain).norm() / plain.norm())
+    print(f"[vitdet] B={B}, 1024 px, 1000 proposals: {ms:.3f} ms/call (CUDA "
+          f"events, median of 5), {B / ms * 1e3:.2f} images/s; peak "
+          f"{peak:.4f} GiB; valid per image {v.sum(1).tolist()}; shapes and "
+          f"finite valid slots ok={ok}; launches {counts}; global attention "
+          f"core vs plain f32 rel err {err:.3e}")
+    need_launches(counts, ("nms", "roi_align"), "vitdet")
+    if not ok or not err < 1e-2:
+        raise AssertionError("the ViTDet forward is malformed or its "
+                             "attention is off the plain one")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def same_answer(x, y):
     """Two engines' answers to one frame agree: captions equal, boxes
     within rtol 1e-4 / atol 1e-3 (the JAX mesh engine's test)."""
@@ -4237,7 +4296,8 @@ def main(argv=None):
     model = to_torch(params, FLAGSHIP, dev)
     paths = {"serve": serve, "eval": phase_eval(dev, model, vocab),
              "beam": phase_beam(dev, model),
-             "extract_features": phase_extract(dev, model)}
+             "extract_features": phase_extract(dev, model),
+             "vitdet": phase_vitdet(dev)}
     (paths["eval data parallel"], paths["engine data parallel"],
      data_parallel) = phase_data_parallel(dev, model, params, vocab)
     del model

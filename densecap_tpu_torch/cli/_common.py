@@ -44,6 +44,9 @@ def maybe_quantize(params, mode: str):
     """
     if mode in ("", "none"):
         return params
+    if "vit" in params:
+        raise SystemExit(f"--quantize {mode}: not supported with a ViTDet "
+                         "trunk (its checkpoint runs in the compute dtype)")
     if mode == "int8":
         from ..ops.quant import quantize_for_inference
 

@@ -4,8 +4,9 @@ Twin of `densecap_tpu.config.DenseCapConfig` restricted to the fields the
 port's inference and training paths read, under the same names and
 defaults. `compute_dtype` is a torch dtype. `from_json` reads what the JAX
 `to_json` writes (the dtype as a name such as "bfloat16"); fields that
-only TPU-specific options use are dropped. What `to_json` writes, the
-JAX `from_json` reads.
+only TPU-specific options use are dropped. What `to_json` writes for a
+VGG-16 config, the JAX `from_json` reads; the `trunk` and `vit_*` fields
+(a ViTDet trunk, which the JAX package does not have) are the port's own.
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ VGG16_FIELD_CENTERS = (8.5, 8.5, 16.0, 16.0)
 
 # VGG-mean BGR pixel offsets (the canvas is BGR-ordered).
 VGG_MEAN_BGR = (103.939, 116.779, 123.68)
+
+# The trunks: VGG-16 (the reference's) and ViTDet's plain ViT with its
+# simple feature pyramid's stride-16 level (`models/vitdet.py`).
+TRUNKS = ("vgg16", "vitdet_b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +94,22 @@ class DenseCapConfig:
     # finetune flip); trunk1 never has one
     static_freeze_cnn: bool = False
 
+    # the trunk (TRUNKS); the vit_* fields shape the ViTDet one and
+    # default to ViTDet-B (Li et al., arXiv:2203.16527), whose input is a
+    # vit_img_size square and whose stride-16 features have
+    # vit_out_channels channels
+    trunk: str = "vgg16"
+    vit_img_size: int = 1024
+    vit_patch_size: int = 16
+    vit_embed_dim: int = 768
+    vit_depth: int = 12
+    vit_num_heads: int = 12
+    vit_mlp_ratio: float = 4.0
+    vit_window_size: int = 14
+    vit_global_blocks: Tuple[int, ...] = (2, 5, 8, 11)
+    vit_pretrain_grid: int = 14
+    vit_out_channels: int = 256
+
     @property
     def num_anchors(self) -> int:
         return len(self.anchors)
@@ -97,12 +118,26 @@ class DenseCapConfig:
         return (torch.tensor(self.anchors, dtype=torch.float32, device=device)
                 * self.anchor_scale)
 
+    def __post_init__(self):
+        if self.trunk not in TRUNKS:
+            raise ValueError(f"unknown trunk {self.trunk!r} (expected one "
+                             f"of {', '.join(TRUNKS)})")
+
     def replace(self, **kw) -> "DenseCapConfig":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def is_vit(self) -> bool:
+        return self.trunk != "vgg16"
+
     def to_json(self) -> str:
+        """The JAX `from_json` reads a VGG-16 config's JSON, which leaves
+        out the trunk fields (it has no ViTDet)."""
         d = dataclasses.asdict(self)
         d["compute_dtype"] = str(self.compute_dtype).removeprefix("torch.")
+        if not self.is_vit:
+            d = {k: v for k, v in d.items()
+                 if k != "trunk" and not k.startswith("vit_")}
         return json.dumps(d)
 
     @classmethod
@@ -119,4 +154,6 @@ class DenseCapConfig:
             d["anchors"] = tuple(tuple(a) for a in d["anchors"])
         if "field_centers" in d:
             d["field_centers"] = tuple(d["field_centers"])
+        if "vit_global_blocks" in d:
+            d["vit_global_blocks"] = tuple(d["vit_global_blocks"])
         return cls(**d)

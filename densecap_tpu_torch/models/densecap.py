@@ -44,11 +44,12 @@ class DenseCap(nn.Module):
     """
 
     def __init__(self, cfg, trunk1, trunk2, rpn, recog, objectness,
-                 box_reg, lm):
+                 box_reg, lm, vit=None):
         super().__init__()
         self.cfg = cfg
         self.trunk1, self.trunk2, self.rpn, self.recog = (
             trunk1, trunk2, rpn, recog)
+        self.vit = vit  # `models.vitdet.ViTDet` in VGG-16's place
         self.obj_w, self.obj_b = frozen(objectness[0]), frozen(objectness[1])
         self.box_w, self.box_b = frozen(box_reg[0]), frozen(box_reg[1])
         self.lm = lm
@@ -61,8 +62,15 @@ class DenseCap(nn.Module):
         gradient: the reference never trains it. With
         `cfg.static_freeze_cnn` trunk2 does too, which removes the whole
         trunk from the backward.
+
+        With a ViTDet trunk (`cfg.trunk`, inference only) the features
+        are (B, vit_out_channels, G, G) over the whole `vit_img_size`
+        square the canvas is padded to; they are not zeroed past the
+        extent, as ViTDet's are not.
         """
         with span("trunk"):
+            if self.vit is not None:
+                return self.vit(images, img_h, img_w)
             x = images.permute(0, 3, 1, 2)  # channels_last view of NHWC
             with torch.no_grad():
                 x = self.trunk1(x, img_h, img_w,

@@ -1,0 +1,283 @@
+"""ViTDet's plain ViT and the stride-16 level of its simple feature
+pyramid as DenseCap's trunk (Li, Mao, Girshick, He, "Exploring Plain
+Vision Transformer Backbones for Object Detection", ECCV 2022,
+arXiv:2203.16527; detectron2's `ViT` and `SimpleFeaturePyramid`).
+
+  * input: the port's canvases (BGR less the VGG mean, zero past the
+    frame) back to RGB pixels, normalized by ViTDet's mean and std, zero
+    past each frame and zero-padded to a `vit_img_size` square;
+  * a 16x16 stride-16 patch embedding with bias, plus the absolute
+    position table of the pretraining grid interpolated bicubically to
+    the patch grid (once, at build);
+  * pre-norm blocks, `x + Attn(LN1(x))` then `x + MLP(LN2(x))` (LayerNorm
+    eps 1e-6, exact GELU). Windowed blocks pad LN1's output with zeros to
+    a multiple of the window and attend within each window with no mask,
+    so padded tokens are keys through the qkv bias; global blocks
+    (`vit_global_blocks`) attend over the whole grid. The logits are
+    `(q * d^-0.5) k^T + rel_h + rel_w`, the decomposed relative positions
+    of the unscaled q (`rel_h[i, kh] = q_i . Rh[qh(i) - kh + S - 1]`);
+  * no final norm; the neck is a 1x1 conv to `vit_out_channels` with no
+    bias and a channel LayerNorm, then a 3x3 conv with no bias and a
+    channel LayerNorm. ViTDet builds four levels for an FPN head;
+    DenseCap's localization is single-scale at stride 16, so only that
+    level is built.
+
+Precision as in the rest of the port: bf16 operands, f32 accumulation,
+LayerNorm, softmax statistics and the residual stream in f32.
+
+Attention never writes a (heads x N x N) tensor: the relative-position
+terms fold into the product of `F.scaled_dot_product_attention` at scale
+1, `q' = [q d^-0.5, rel_h(q), rel_w(q)]` against `k' = [k, onehot(kh),
+onehot(kw)]`, so a fused backend computes the exact logits. On the card
+the math backend, which would write them, is excluded.
+
+Spans (`utils.profiling`), under `trunk`: `vit.attn.window` and
+`vit.attn.global` (the attention core, from q, k, v to the heads' output,
+with the relative-position terms), `vit.mlp` (LN2 and the MLP) and
+`vit.neck`; counters `vit.tokens` (query tokens through attention a call,
+window padding included) and `vit.pad_tokens` (the padding's share).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import VGG_MEAN_BGR
+from ..utils.profiling import count, span
+from .vgg16 import dot_f32, frozen
+
+VIT_MEAN_RGB = (123.675, 116.28, 103.53)
+VIT_STD_RGB = (58.395, 57.12, 57.375)
+LN_EPS = 1e-6
+HEAD_ALIGN = 8  # the fused backends take head sizes in multiples of 8
+VIT_TRAINING = ("training through a ViTDet trunk is not supported: the "
+                "port runs it for inference only")
+
+
+def vit_input(images, img_h, img_w, size):
+    """(B, H, W, 3) f32 canvases, BGR less the VGG mean -> (B, size, size,
+    3) f32 ViTDet input: RGB normalized by ViTDet's mean and std, zero
+    past each (img_h, img_w) frame and zero-padded to size x size."""
+    B, H, W, _ = images.shape
+    if H > size or W > size:
+        raise ValueError(f"the ViTDet trunk takes canvases of at most "
+                         f"{size}x{size} (vit_img_size); got {H}x{W}")
+    dev = images.device
+    vgg = torch.tensor(VGG_MEAN_BGR, device=dev)
+    mean = torch.tensor(VIT_MEAN_RGB, device=dev)
+    std = torch.tensor(VIT_STD_RGB, device=dev)
+    x = ((images + vgg).flip(-1) - mean) / std
+    rows = torch.arange(H, device=dev)[None, :] < img_h[:, None]
+    cols = torch.arange(W, device=dev)[None, :] < img_w[:, None]
+    x = x * (rows[:, :, None] & cols[:, None, :])[..., None]
+    return F.pad(x, (0, 0, 0, size - W, 0, size - H))
+
+
+def linear_cd(x, w, b, cd):
+    """`x @ w + b` accumulated in f32 and rounded once to the compute
+    dtype `cd` (a bf16 product with its bias in cuBLAS's epilogue on the
+    card; widened operands on the CPU, which is exact)."""
+    if x.is_cuda and cd != torch.float32:
+        return torch.addmm(b.to(cd), x.to(cd), w.to(cd))
+    return (dot_f32(x, w, cd) + b).to(cd)
+
+
+def linear_f32(x, w, b, cd):
+    """`dot_f32(x, w, cd) + b`: on the card one bf16 product with an f32
+    result and the f32 bias in cuBLAS's epilogue."""
+    if x.is_cuda and cd != torch.float32:
+        return torch.addmm(b, x.to(cd), w.to(cd), out_dtype=torch.float32)
+    return dot_f32(x, w, cd) + b
+
+
+def rel_table(table, size):
+    """(2 size - 1, d) table -> (size, size, d): row qh, column kh holds
+    table[qh - kh + size - 1] (detectron2 `get_rel_pos` at equal sizes)."""
+    idx = torch.arange(size, device=table.device)
+    return table[idx[:, None] - idx[None, :] + size - 1]
+
+
+def _sdpa(q, k, v):
+    """Softmax attention at scale 1 by a fused backend on the card (never
+    the math one, which writes the logits); in f32 on the CPU, on the
+    operands as given."""
+    if not q.is_cuda:
+        return F.scaled_dot_product_attention(q.float(), k.float(),
+                                              v.float(), scale=1.0)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        return F.scaled_dot_product_attention(q, k, v, scale=1.0)
+
+
+def attention_core(q, k, v, rel_h_table, rel_w_table, hw, cd):
+    """Softmax attention with decomposed relative positions.
+
+    q, k, v: (N, L, heads, d) in the compute dtype, token-major (the qkv
+    product's columns as they are), over an (hh, ww) grid (L = hh ww,
+    row-major); the tables: (2 hh - 1, d), (2 ww - 1, d). -> (N, heads,
+    L, d) in the compute dtype.
+
+    q' and k' are written once each, in place: q d^-0.5 and k, then the
+    relative terms (q against every row of both tables in one product,
+    each query's own offsets gathered from it) and the one-hot key
+    positions, then zeros to a multiple of HEAD_ALIGN."""
+    hh, ww = hw
+    N, L, nh, d = q.shape
+    S = hh + ww
+    width = d + S + (-(d + S) % HEAD_ALIGN)
+    qp, kp = q.new_empty(N, L, nh, width), k.new_empty(N, L, nh, width)
+    torch.mul(q, d ** -0.5, out=qp[..., :d])
+    kp[..., :d] = k
+    qp[..., d + S:] = 0
+    kp[..., d + S:] = 0
+    tables = torch.cat([rel_h_table, rel_w_table]).to(cd)
+    if q.is_cuda:
+        full = q.reshape(-1, d) @ tables.t()
+    else:  # widened operands, f32 sums, as dot_f32
+        full = (q.reshape(-1, d).float() @ tables.float().t()).to(cd)
+    full = full.view(N, hh, ww, nh, -1)
+    dev = q.device
+    # rel_h[.., qh, qw, head, kh] = q . Rh[qh - kh + hh - 1]; rel_w alike
+    ih, iw = torch.arange(hh, device=dev), torch.arange(ww, device=dev)
+    idx_h = (ih[:, None] - ih[None, :] + hh - 1)[None, :, None, None]
+    off = 2 * hh - 1  # the width table's first row in `tables`
+    idx_w = (iw[:, None] - iw[None, :] + ww - 1 + off)[None, None, :, None]
+    q5, k5 = qp.view(N, hh, ww, nh, width), kp.view(N, hh, ww, nh, width)
+    torch.gather(full, 4, idx_h.expand(N, hh, ww, nh, hh),
+                 out=q5[..., d:d + hh])
+    torch.gather(full, 4, idx_w.expand(N, hh, ww, nh, ww),
+                 out=q5[..., d + hh:d + S])
+    k5[..., d:d + hh] = torch.eye(hh, dtype=cd, device=dev)[:, None, None]
+    k5[..., d + hh:d + S] = torch.eye(ww, dtype=cd, device=dev)[:, None]
+    o = _sdpa(qp.transpose(1, 2), kp.transpose(1, 2), v.transpose(1, 2))
+    return o.to(cd)
+
+
+def layer_norm(x, p):
+    return F.layer_norm(x, (x.shape[-1],), p[0], p[1], LN_EPS)
+
+
+class Attention(nn.Module):
+    """qkv (with bias), the attention core, the output projection."""
+
+    def __init__(self, qkv, proj, rel_h, rel_w, heads, cd):
+        super().__init__()
+        self.qkv_w, self.qkv_b = frozen(qkv[0]), frozen(qkv[1])
+        self.proj_w, self.proj_b = frozen(proj[0]), frozen(proj[1])
+        self.rel_h, self.rel_w = frozen(rel_h), frozen(rel_w)
+        self.heads, self.cd = heads, cd
+
+    def core(self, x, name):
+        """x: (N, hh, ww, C) in the compute dtype -> the heads' output
+        (N, hh, ww, C), in it too."""
+        N, hh, ww, C = x.shape
+        nh = self.heads
+        qkv = linear_cd(x.reshape(-1, C), self.qkv_w, self.qkv_b, self.cd)
+        q, k, v = qkv.view(N, hh * ww, 3, nh, C // nh).unbind(2)
+        with span(name):
+            o = attention_core(q, k, v, self.rel_h, self.rel_w, (hh, ww),
+                               self.cd)
+        return o.transpose(1, 2).reshape(N, hh, ww, C)
+
+    def project(self, o):
+        shape = o.shape
+        return linear_f32(o.reshape(-1, shape[-1]), self.proj_w, self.proj_b,
+                          self.cd).reshape(shape)
+
+
+class Block(nn.Module):
+    def __init__(self, norm1, attn, norm2, fc1, fc2, window, cd):
+        super().__init__()
+        self.norm1 = nn.ParameterList([frozen(t) for t in norm1])
+        self.norm2 = nn.ParameterList([frozen(t) for t in norm2])
+        self.attn = attn
+        self.fc1_w, self.fc1_b = frozen(fc1[0]), frozen(fc1[1])
+        self.fc2_w, self.fc2_b = frozen(fc2[0]), frozen(fc2[1])
+        self.window, self.cd = window, cd
+
+    def forward(self, x):
+        """x: (B, H, W, C) f32 residual stream."""
+        B, H, W, C = x.shape
+        h = layer_norm(x, self.norm1)
+        ws = self.window
+        if ws:
+            Hp, Wp = H + (-H % ws), W + (-W % ws)
+            pad = h.new_zeros((B, Hp, Wp, C), dtype=self.cd)
+            pad[:, :H, :W] = h
+            h = pad.view(B, Hp // ws, ws, Wp // ws, ws, C).transpose(
+                2, 3).reshape(-1, ws, ws, C)
+            o = self.attn.core(h, "vit.attn.window")
+            o = o.reshape(B, Hp // ws, Wp // ws, ws, ws, C).transpose(
+                2, 3).reshape(B, Hp, Wp, C)[:, :H, :W]
+            count("vit.tokens", B * Hp * Wp)
+            count("vit.pad_tokens", B * (Hp * Wp - H * W))
+        else:
+            o = self.attn.core(h.to(self.cd), "vit.attn.global")
+            count("vit.tokens", B * H * W)
+        # the projection is per token: the padding's rows are dropped first
+        x = x + self.attn.project(o)
+        with span("vit.mlp"):
+            h = layer_norm(x, self.norm2).reshape(-1, C)
+            h = F.gelu(linear_cd(h, self.fc1_w, self.fc1_b, self.cd))
+            y = linear_f32(h, self.fc2_w, self.fc2_b, self.cd)
+        return x + y.reshape(B, H, W, C)
+
+
+class ViTDet(nn.Module):
+    """The trunk: `forward(images, img_h, img_w)` takes the port's
+    canvases and gives (B, vit_out_channels, G, G) f32 channels_last
+    features, G = vit_img_size / vit_patch_size.
+
+    patch: (w (p, p, 3, C) HWIO, b); pos: the pretraining grid's table
+    (g, g, C); blocks: `Block`s; neck: (w1 (C, out), ln1, w2 (out, out,
+    3, 3) OIHW, ln2)."""
+
+    def __init__(self, cfg, patch, pos, blocks, neck):
+        super().__init__()
+        self.cfg, self.cd = cfg, cfg.compute_dtype
+        self.patch_w, self.patch_b = frozen(patch[0]), frozen(patch[1])
+        self.pos_table = frozen(pos)
+        G = cfg.vit_img_size // cfg.vit_patch_size
+        grid = F.interpolate(pos.float().permute(2, 0, 1)[None], size=(G, G),
+                             mode="bicubic", align_corners=False)
+        self.register_buffer("pos", grid[0].permute(1, 2, 0).contiguous(),
+                             persistent=False)
+        self.blocks = nn.ModuleList(blocks)
+        self.neck_w1 = frozen(neck[0])
+        self.neck_ln1 = nn.ParameterList([frozen(t) for t in neck[1]])
+        self.neck_w2 = frozen(neck[2])
+        self.neck_ln2 = nn.ParameterList([frozen(t) for t in neck[3]])
+
+    def embed(self, x):
+        """(B, S, S, 3) f32 input -> (B, G, G, C) f32 tokens."""
+        B, S, _, _ = x.shape
+        p = self.cfg.vit_patch_size
+        G = S // p
+        patches = x.reshape(B, G, p, G, p, 3).transpose(2, 3).reshape(
+            B * G * G, p * p * 3)
+        w = self.patch_w.reshape(p * p * 3, -1)
+        t = linear_f32(patches, w, self.patch_b, self.cd)
+        return t.reshape(B, G, G, -1) + self.pos
+
+    def neck(self, x):
+        """(B, G, G, C) f32 -> (B, out, G, G) f32 channels_last."""
+        B, G, _, C = x.shape
+        cd = self.cd
+        y = dot_f32(x.reshape(-1, C), self.neck_w1, cd).reshape(B, G, G, -1)
+        y = layer_norm(y, self.neck_ln1).to(cd).permute(0, 3, 1, 2)
+        y = F.conv2d(y, self.neck_w2.to(cd), padding=1).float()
+        y = layer_norm(y.permute(0, 2, 3, 1), self.neck_ln2)
+        return y.permute(0, 3, 1, 2)
+
+    def forward(self, images, img_h, img_w):
+        x = self.embed(vit_input(images, img_h, img_w,
+                                 self.cfg.vit_img_size))
+        for blk in self.blocks:
+            x = blk(x)
+        with span("vit.neck"):
+            return self.neck(x)

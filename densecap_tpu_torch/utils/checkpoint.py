@@ -34,6 +34,11 @@
     wide), so a run at any `--model_parallel` resumes one written at any
     other.
 
+A ViTDet tree (`cfg.trunk` "vitdet_b") holds its trunk under "vit" in
+place of "trunk1" / "trunk2" (`vit_tree_names` lists its leaves); it
+builds inference models only: `to_torch(..., train=True)` refuses it, and
+so does training under a model group (`--model_parallel`).
+
 A tree that `ops.quant.quantize_for_inference` (or the JAX package's, as
 numpy) has quantized builds an int8 inference model: each quantized layer
 becomes a `QuantLinear` whose codes stay int8 and whose scales and bias
@@ -58,6 +63,7 @@ from ..models.densecap import DenseCap
 from ..models.lstm import LanguageModel
 from ..models.rpn import RPN
 from ..models.vgg16 import TRUNK1_CFG, TRUNK2_CFG, Linear, Recog, Trunk
+from ..models.vitdet import VIT_TRAINING, Attention, Block, ViTDet
 from ..ops.quant import QuantLinear, is_quantized
 from ..parallel import distributed
 from ..parallel.mesh import param_shard_dims, shard_params
@@ -167,8 +173,52 @@ def load_checkpoint(path, vocab_size=10000, seq_length=15):
     return params, meta, cfg
 
 
+def vit_blocks(cfg):
+    """[(block index, window size or 0 for a global block)]."""
+    return [(i, 0 if i in cfg.vit_global_blocks else cfg.vit_window_size)
+            for i in range(cfg.vit_depth)]
+
+
+def vit_tree_names(cfg):
+    """[(path under "vit", shape, law)] of a ViTDet trunk, in the order
+    `init_params` draws them; law is "normal" (N(0, 0.02)), "he_out"
+    (He-normal over fan-out, detectron2's c2_msra_fill), "zeros" or
+    "ones"."""
+    C, p = cfg.vit_embed_dim, cfg.vit_patch_size
+    hd, g = C // cfg.vit_num_heads, cfg.vit_pretrain_grid
+    hidden = int(C * cfg.vit_mlp_ratio)
+    G = cfg.vit_img_size // p
+    out = cfg.vit_out_channels
+    names = [("patch_embed/w", (p, p, 3, C), "normal"),
+             ("patch_embed/b", (C,), "zeros"),
+             ("pos_embed", (g, g, C), "normal")]
+    for i, window in vit_blocks(cfg):
+        S = window or G
+        b = f"block{i}/"
+        names += [(b + "norm1/w", (C,), "ones"),
+                  (b + "norm1/b", (C,), "zeros"),
+                  (b + "attn/qkv/w", (C, 3 * C), "normal"),
+                  (b + "attn/qkv/b", (3 * C,), "zeros"),
+                  (b + "attn/proj/w", (C, C), "normal"),
+                  (b + "attn/proj/b", (C,), "zeros"),
+                  (b + "attn/rel_pos_h", (2 * S - 1, hd), "normal"),
+                  (b + "attn/rel_pos_w", (2 * S - 1, hd), "normal"),
+                  (b + "norm2/w", (C,), "ones"),
+                  (b + "norm2/b", (C,), "zeros"),
+                  (b + "mlp/fc1/w", (C, hidden), "normal"),
+                  (b + "mlp/fc1/b", (hidden,), "zeros"),
+                  (b + "mlp/fc2/w", (hidden, C), "normal"),
+                  (b + "mlp/fc2/b", (C,), "zeros")]
+    names += [("neck/conv1/w", (1, 1, C, out), "he_out"),
+              ("neck/ln1/w", (out,), "ones"), ("neck/ln1/b", (out,), "zeros"),
+              ("neck/conv2/w", (3, 3, out, out), "he_out"),
+              ("neck/ln2/w", (out,), "ones"), ("neck/ln2/b", (out,), "zeros")]
+    return names
+
+
 def init_params(cfg, seed=0):
-    """Random parameters with the JAX package's tree, names, shapes and laws."""
+    """Random parameters with the JAX package's tree, names, shapes and
+    laws; a ViTDet config's trunk has `vit_tree_names`'s (no JAX twin)."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -194,8 +244,19 @@ def init_params(cfg, seed=0):
             cin = cout
         return out, cin
 
-    trunk1, c1 = trunk(TRUNK1_CFG, 3)
-    trunk2, c2 = trunk(TRUNK2_CFG, c1)
+    if cfg.is_vit:
+        laws = {"normal": lambda s: normal(s, 0.02),
+                "he_out": lambda s: normal(s, (2.0 / (s[0] * s[1] * s[3]))
+                                           ** 0.5),
+                "zeros": lambda s: zeros(*s),
+                "ones": lambda s: np.ones(s, np.float32)}
+        vit = _unflatten({path: laws[law](shape)
+                          for path, shape, law in vit_tree_names(cfg)})
+        trunks, c2 = {"vit": vit}, cfg.vit_out_channels
+    else:
+        trunk1, c1 = trunk(TRUNK1_CFG, 3)
+        trunk2, c2 = trunk(TRUNK2_CFG, c1)
+        trunks = {"trunk1": trunk1, "trunk2": trunk2}
     k, nf, fs = cfg.num_anchors, cfg.rpn_num_filters, cfg.rpn_filter_size
     rpn = {
         "conv": {"w": normal((fs, fs, c2, nf), cfg.std), "b": zeros(nf)},
@@ -220,7 +281,7 @@ def init_params(cfg, seed=0):
         "proj": {"w": uniform((H, V + 1), hs), "b": zeros(V + 1)},
     }
     return {
-        "trunk1": trunk1, "trunk2": trunk2, "rpn": rpn, "recog": recog,
+        **trunks, "rpn": rpn, "recog": recog,
         "objectness": {"w": normal((F, 1), cfg.std), "b": zeros(1)},
         "box_reg": {"w": zeros(F, 4), "b": zeros(4)},
         "lm": lm,
@@ -238,6 +299,16 @@ def to_torch(params, cfg, device, train=False):
     column-parallel `Linear`s over the group. The ranks of data index 0
     must pass the same tree (the same seed or file): `Trainer` then
     broadcasts each shard from there over its data group."""
+    if train and "vit" in params:
+        if distributed.model_size() > 1:
+            raise ValueError("--model_parallel: tensor parallelism is not "
+                             "supported with a ViTDet trunk; "
+                             + VIT_TRAINING)
+        raise ValueError(VIT_TRAINING)
+    if ("vit" in params) != cfg.is_vit:
+        raise ValueError(f"the config's trunk is {cfg.trunk!r} but the "
+                         f"parameter tree's is "
+                         f"{'a ViTDet' if 'vit' in params else 'VGG-16'}")
     shards = {}  # layer path -> this rank's ColumnShard of it
     if train and distributed.model_size() > 1:
         for name, dim in param_shard_dims(params).items():
@@ -277,11 +348,43 @@ def to_torch(params, cfg, device, train=False):
         return Trunk(spec, {item[0]: conv(tree[item[0]], wd)
                             for item in spec if item != "M"}, cd)
 
+    def vit(tree):
+        heads = cfg.vit_num_heads
+
+        def pair(p):
+            return t(p["w"]), t(p["b"])
+
+        blocks = []
+        for i, window in vit_blocks(cfg):
+            b = tree[f"block{i}"]
+            a = b["attn"]
+            attn = Attention(linear(a["qkv"]), linear(a["proj"]),
+                             t(a["rel_pos_h"], wd), t(a["rel_pos_w"], wd),
+                             heads, cd)
+            blocks.append(Block(pair(b["norm1"]), attn, pair(b["norm2"]),
+                                linear(b["mlp"]["fc1"]),
+                                linear(b["mlp"]["fc2"]), window, cd))
+        n = tree["neck"]
+        w1 = t(np.asarray(n["conv1"]["w"])[0, 0], wd)
+        w2 = t(np.transpose(np.asarray(n["conv2"]["w"]), (3, 2, 0, 1)),
+               wd).contiguous(memory_format=torch.channels_last)
+        return ViTDet(cfg, (t(tree["patch_embed"]["w"], wd),
+                            t(tree["patch_embed"]["b"])),
+                      t(tree["pos_embed"]), blocks,
+                      (w1, pair(n["ln1"]), w2, pair(n["ln2"])))
+
     rp, lm = params["rpn"], params["lm"]
+    if cfg.is_vit:
+        trunk1 = trunk2 = None
+        vit_trunk = vit(params["vit"])
+    else:
+        trunk1 = trunk(TRUNK1_CFG, params["trunk1"])
+        trunk2 = trunk(TRUNK2_CFG, params["trunk2"])
+        vit_trunk = None
     model = DenseCap(
         cfg,
-        trunk(TRUNK1_CFG, params["trunk1"]),
-        trunk(TRUNK2_CFG, params["trunk2"]),
+        trunk1,
+        trunk2,
         RPN(conv(rp["conv"], torch.float32), conv(rp["box"], torch.float32),
             conv(rp["score"], torch.float32), cd),
         Recog(layer(params["recog"]["fc6"], "recog/fc6"),
@@ -291,6 +394,7 @@ def to_torch(params, cfg, device, train=False):
         LanguageModel(*linear(lm["img_enc"]), t(lm["embed"]),
                       t(lm["lstm"]["Wx"], wd), t(lm["lstm"]["Wh"], wd),
                       t(lm["lstm"]["b"]), layer(lm["proj"], "lm/proj"), cd),
+        vit=vit_trunk,
     )
     if not train:
         return model.eval()
@@ -316,10 +420,34 @@ def from_torch(model):
     def linear(layer):
         return dict(zip("wb", map(n, layer.full())))
 
+    def pair(p):
+        return {"w": n(p[0]), "b": n(p[1])}
+
+    def vit(v):
+        tree = {"patch_embed": {"w": n(v.patch_w), "b": n(v.patch_b)},
+                "pos_embed": n(v.pos_table)}
+        for i, blk in enumerate(v.blocks):
+            a = blk.attn
+            tree[f"block{i}"] = {
+                "norm1": pair(blk.norm1), "norm2": pair(blk.norm2),
+                "attn": {"qkv": {"w": n(a.qkv_w), "b": n(a.qkv_b)},
+                         "proj": {"w": n(a.proj_w), "b": n(a.proj_b)},
+                         "rel_pos_h": n(a.rel_h), "rel_pos_w": n(a.rel_w)},
+                "mlp": {"fc1": {"w": n(blk.fc1_w), "b": n(blk.fc1_b)},
+                        "fc2": {"w": n(blk.fc2_w), "b": n(blk.fc2_b)}}}
+        tree["neck"] = {
+            "conv1": {"w": n(v.neck_w1)[None, None]},
+            "ln1": pair(v.neck_ln1),
+            "conv2": {"w": np.ascontiguousarray(
+                n(v.neck_w2).transpose(2, 3, 1, 0))},
+            "ln2": pair(v.neck_ln2)}
+        return tree
+
     rpn, rec, lm = model.rpn, model.recog, model.lm
+    trunks = ({"vit": vit(model.vit)} if model.vit is not None else
+              {"trunk1": trunk(model.trunk1), "trunk2": trunk(model.trunk2)})
     return {
-        "trunk1": trunk(model.trunk1),
-        "trunk2": trunk(model.trunk2),
+        **trunks,
         "rpn": {"conv": conv(rpn.conv_w, rpn.conv_b),
                 "box": conv(rpn.box_w, rpn.box_b),
                 "score": conv(rpn.score_w, rpn.score_b)},

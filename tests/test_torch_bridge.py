@@ -101,10 +101,15 @@ def test_config_reads_jax_json():
     assert cfg.compute_dtype == torch.bfloat16
     assert cfg.test_pre_nms_topk == 77 and cfg.anchors == TINY["anchors"]
     assert cfg.field_centers == JCFG.field_centers
+    jax_names = {f.name for f in dataclasses.fields(JCFG)}
     for f in dataclasses.fields(DenseCapConfig):
-        if f.name != "compute_dtype":
+        if f.name in jax_names and f.name != "compute_dtype":
             assert getattr(cfg, f.name) == getattr(
                 JCFG.replace(test_pre_nms_topk=77), f.name), f.name
+        elif f.name not in jax_names:
+            # the port's own trunk fields (ViTDet): the VGG-16 defaults
+            assert f.name == "trunk" or f.name.startswith("vit_"), f.name
+            assert getattr(cfg, f.name) == f.default, f.name
     assert DenseCapConfig.from_json(cfg.to_json()) == cfg
 
 

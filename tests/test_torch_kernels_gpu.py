@@ -811,3 +811,96 @@ def test_greedy_decode_k4_against_the_plain_head(dev, monkeypatch):
     cols = torch.arange(HEAD_T, device=dev)[None]
     same = cols < torch.where(rows, at, HEAD_T)[:, None]
     assert float((lps - lps_p).abs()[same].max()) <= 1e-4
+
+
+def _vit_block(window, C=768, heads=12, seed=3):
+    """A ViTDet-B block with random weights (N(0, 0.02) matrices and
+    relative-position tables, biases and LayerNorms off their init), in
+    bf16 on the card."""
+    from densecap_tpu_torch.models.vitdet import Attention, Block
+
+    g = torch.Generator().manual_seed(seed)
+    S = window or 64
+
+    def n(*shape, std=0.02):
+        return (torch.randn(shape, generator=g) * std).cuda()
+
+    cd = torch.bfloat16
+    attn = Attention((n(C, 3 * C).to(cd), n(3 * C, std=0.1)),
+                     (n(C, C).to(cd), n(C, std=0.1)),
+                     n(2 * S - 1, C // heads).to(cd),
+                     n(2 * S - 1, C // heads).to(cd), heads, cd)
+    return Block((1 + n(C, std=0.1), n(C, std=0.1)), attn,
+                 (1 + n(C, std=0.1), n(C, std=0.1)),
+                 (n(C, 4 * C).to(cd), n(4 * C, std=0.1)),
+                 (n(4 * C, C).to(cd), n(C, std=0.1)), window, cd)
+
+
+def _plain_block(blk, x):
+    """The block in f32 with the logits written out, image by image (the
+    plain path the fused one is held to): LN1, zero-padded windows, qkv,
+    `(q d^-0.5) k^T + rel_h + rel_w` with q unscaled in the relative
+    terms, softmax, `@ v`, projection, LN2 and the MLP."""
+    import torch.nn.functional as F
+
+    from densecap_tpu_torch.models.vitdet import rel_table
+
+    a = blk.attn
+    f = {k: v.float() for k, v in (("qkv_w", a.qkv_w), ("proj_w", a.proj_w),
+                                  ("fc1_w", blk.fc1_w), ("fc2_w", blk.fc2_w),
+                                  ("rel_h", a.rel_h), ("rel_w", a.rel_w))}
+    out = []
+    for xi in x.split(1):
+        _, H, W, C = xi.shape
+        h = F.layer_norm(xi, (C,), blk.norm1[0], blk.norm1[1], 1e-6)
+        ws = blk.window or H
+        Hp, Wp = H + (-H % ws), W + (-W % ws)
+        h = F.pad(h, (0, 0, 0, Wp - W, 0, Hp - H)).reshape(
+            Hp // ws, ws, Wp // ws, ws, C).transpose(1, 2).reshape(
+                -1, ws * ws, C)
+        qkv = h @ f["qkv_w"] + a.qkv_b
+        nh = a.heads
+        d = C // nh
+        q, k, v = qkv.reshape(-1, ws * ws, 3, nh, d).permute(2, 0, 3, 1, 4)
+        logits = (q * d ** -0.5) @ k.transpose(-1, -2)
+        r = q.reshape(-1, nh, ws, ws, d)
+        rh = torch.einsum("bnhwc,hkc->bnhwk", r, rel_table(f["rel_h"], ws))
+        rw = torch.einsum("bnhwc,wkc->bnhwk", r, rel_table(f["rel_w"], ws))
+        logits = (logits.reshape(-1, nh, ws, ws, ws, ws) + rh[..., None]
+                  + rw[..., None, :]).reshape(logits.shape)
+        o = (torch.softmax(logits, -1) @ v).transpose(1, 2).reshape(
+            -1, ws * ws, C) @ f["proj_w"] + a.proj_b
+        o = o.reshape(Hp // ws, Wp // ws, ws, ws, C).transpose(1, 2).reshape(
+            1, Hp, Wp, C)[:, :H, :W]
+        xi = xi + o
+        m = F.layer_norm(xi, (C,), blk.norm2[0], blk.norm2[1], 1e-6)
+        m = F.gelu(m @ f["fc1_w"] + blk.fc1_b) @ f["fc2_w"] + blk.fc2_b
+        out.append(xi + m)
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("window", [0, 14], ids=["global", "windowed"])
+def test_vitdet_block_matches_plain(dev, window):
+    """One ViTDet-B block at the published shape (B=8, a 64 x 64 grid of
+    768 wide tokens, 12 heads; windows of 14 padded from 64 to 70) through
+    the fused attention in bf16, against the plain f32 path with the
+    logits written out. Tolerance: bf16 operands put each product ~2^-9
+    off, and the fused block's difference is the relative norm of a few
+    of them; its attention holds no (heads x N x N) tensor, whose bf16
+    size alone (3 GiB for the global block) the step's peak stays far
+    below."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blk = _vit_block(window)
+    x = torch.randn(8, 64, 64, 768, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got = blk(x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < 8 * 12 * 64 ** 4 * 2 / 2, extra
+    with torch.no_grad():
+        ref = _plain_block(blk, x)
+    err = float((got - ref).norm() / (ref - x).norm())
+    assert err < 2e-2, err
