@@ -19,8 +19,8 @@ its result on its own line; any failure raises and exits non-zero:
   1. device: the card's name and power limit;
   2. build: the kernels of densecap_tpu_torch/ops/cuda (one nvcc per
      source, in parallel); the count of HGMMA (wgmma) instructions in the
-     SASS of K3's bf16 kernel and of K4 (G = 1 and 2 warpgroups), none of
-     which may be 0, and the global reductions of each K2b instance;
+     SASS of K3's bf16 kernel, of K4 (G = 1 and 2 warpgroups) and of K5,
+     none of which may be 0, and the global reductions of each K2b instance;
   3. K1 (NMS) against its plain PyTorch version at the serving shapes and
      at extract_features' (1000 unsorted -> 100 at 0.4), picks required
      identical; per shape the C launch alone ("kernel_ms": on inputs the
@@ -51,6 +51,13 @@ its result on its own line; any failure raises and exits non-zero:
      one call through the wrapper, the plain head, the bound, and the
      library chain the port no longer calls (torch.mm with an f32
      output, + b, argmax, log_softmax and gather);
+  5c. K5 (the greedy decode's LSTM cell) at P = 8000 and P = 50, E = H =
+     512: a token step from a random state and the image step from zero
+     state against the plain cell (`embed` + `lstm_step`), h and c within
+     LSTM_CELL_TOL, the bf16 state equal to bf16(h); the launch alone (20
+     in a CUDA graph; also with one token for every row), one call through
+     the wrapper, the plain cell, the bound, and torch.lstm_cell in bf16
+     as the library call;
   6. K2b (RoI-align backward) at the training shape, on the square's
      and the bucket's map, against plain
      autograd, in both instances (the positions alone, as while the
@@ -347,6 +354,10 @@ CONV_POOL_RATIO = 1.25   # K3 error vs f32 oracle, at most this x plain's
 CONV_POOL_F32_RTOL = 1e-4
 BWD_FEATS_TOL = 1e-5     # K2b, relative to the largest reference entry
 BWD_BOXES_TOL = 1e-4
+# K5 against the plain cell: the same bf16 products summed in another
+# order (one sum over E + H terms where the plain cell adds two), as
+# tests/test_torch_kernels_gpu.py's CELL_TOL
+LSTM_CELL_TOL = 2e-5
 # the eight image sizes (h, w) of the K2 phase, on the 720 px canvas
 IMG_H = (720, 540, 720, 480, 700, 720, 360, 720)
 IMG_W = (540, 720, 720, 720, 500, 333, 720, 96)
@@ -471,6 +482,12 @@ def phase_build():
     print(f"[build] K4 kernel SASS: HGMMA (wgmma) instructions {counts}")
     if len(counts) != 2 or not all(counts.values()):
         raise AssertionError(f"K4 issues no wgmma: {counts}")
+    hgmma = [len(re.findall(r"\bHGMMA\.", fn))
+             for fn in sass.split("Function : ")[1:]
+             if "lstm_cell_kernel" in fn.split("\n", 1)[0]]
+    print(f"[build] K5 kernel SASS: HGMMA (wgmma) instructions {hgmma}")
+    if len(hgmma) != 1 or not hgmma[0]:
+        raise AssertionError(f"K5 issues no wgmma: {hgmma}")
     # K2b's d feats scatter: the global reductions and atomics each
     # instance compiles to (float4 instance: one vector RED per column)
     reds = {}
@@ -835,6 +852,99 @@ def phase_greedy_head(dev):
             "shapes": shapes}
 
 
+def lstm_cell_library(x, h, c, w_ih, w_hh, b_ih, b_hh):
+    """PyTorch's own LSTM cell (`torch.lstm_cell`: two GEMMs and one fused
+    pointwise kernel), all in bf16 and in its gate order (i, f, g, o): K5's
+    yardstick of time only, not of its arithmetic."""
+    return torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
+
+
+def phase_lstm_cell(dev):
+    """K5 at the decode's two main shapes against the plain cell."""
+    from densecap_tpu_torch.models.lstm import LanguageModel
+    from densecap_tpu_torch.ops import lstm_cell as lc
+
+    H, E = FLAGSHIP.rnn_size, FLAGSHIP.rnn_encoding_size
+    V, D = FLAGSHIP.vocab_size, 64
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def u(shape, scale):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * scale
+
+    # the port's init laws (`init_params`) at the model's widths
+    lm = LanguageModel(u((D, E), D ** -0.5), torch.zeros(E, device=dev),
+                       u((V + 2, E), 0.5), u((E, 4 * H), H ** -0.5).to(bf),
+                       u((H, 4 * H), H ** -0.5).to(bf), u((4 * H,), 0.1),
+                       Linear(u((H, V + 1), 2.0).to(bf), u((V + 1,), 0.1)),
+                       bf)
+    worst, shapes = 0.0, []
+    for P in (B * FLAGSHIP.test_max_proposals, 50):
+        h0, c0 = u((P, H), 1.0), u((P, H), 3.0)
+        tok = torch.randint(0, V + 3, (P,), generator=g, device=dev)
+        with torch.no_grad():
+            want = lm.lstm_step(h0, c0, lm.embed(tok))
+            cell = lc.prepare(lm.embed_w, lm.Wx, lm.Wh, lm.b, P)
+            lc.load_state(cell, h0, c0)
+            got = [t.clone() for t in lc.step(cell, tok=tok)]
+            x = lm.encode_image(u((P, D), 1.0))
+            zeros = torch.zeros((P, H), device=dev)
+            want_i = lm.lstm_step(zeros, zeros, x)
+            cell_i = lc.prepare(lm.embed_w, lm.Wx, lm.Wh, lm.b, P)
+            got_i = lc.step(cell_i, x=x)
+            torch.cuda.synchronize()
+            err = max(float((w - k).abs().max()) for w, k in zip(want, got))
+            err_i = max(float((w - k).abs().max())
+                        for w, k in zip(want_i, got_i))
+            state_ok = bool(torch.equal(cell.hb[cell.cur], got[0].to(bf))
+                            and torch.equal(cell_i.hb[1], got_i[0].to(bf)))
+            kern_ms = graph_ms(lambda: lc.step(cell, tok=tok))
+            one = torch.full_like(tok, 4321)  # every row the same token
+            one_ms = graph_ms(lambda: lc.step(cell, tok=one))
+            k_ms = cuda_ms(lambda: lc.step(cell, tok=tok))
+            p_ms = cuda_ms(lambda: lm.lstm_step(h0, c0, lm.embed(tok)))
+            perm = torch.cat([torch.arange(0, 2 * H),
+                              torch.arange(3 * H, 4 * H),
+                              torch.arange(2 * H, 3 * H)]).to(dev)
+            lib = (lm.embed(tok).to(bf), h0.to(bf), c0.to(bf),
+                   lm.Wx[:, perm].t().contiguous(),
+                   lm.Wh[:, perm].t().contiguous(), lm.b[perm].to(bf),
+                   torch.zeros(4 * H, dtype=bf, device=dev))
+            lib_ms = cuda_ms(lambda: lstm_cell_library(*lib))
+            del cell, cell_i, lib
+        # x, h and c read and h and c written in f32; [Wx ; Wh] in bf16
+        # and b once
+        b_ms, b_by = bound_ms(P * E * 4 + 4 * P * H * 4 + (E + H) * 4 * H * 2
+                              + 4 * H * 4, 2 * P * (E + H) * 4 * H,
+                              H100_BF16_TFLOPS)
+        label = f"P={P} E={E} H={H} bf16"
+        tflops = 2 * P * (E + H) * 4 * H / kern_ms / 1e9
+        print(f"[K5 lstm_cell] {label}: h, c max abs err vs plain token step "
+              f"{err:.3e}, image step {err_i:.3e} (limit {LSTM_CELL_TOL}); "
+              f"bf16 state = bf16(h) {state_ok}; kernel alone "
+              f"{kern_ms:.4f} ms = {tflops:.1f} TFLOP/s ({one_ms:.4f} ms with "
+              f"one token for every row), through the wrapper {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, torch.lstm_cell (bf16) {lib_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}) = {b_ms / kern_ms:.1%} of the kernel "
+              f"alone")
+        if not (err <= LSTM_CELL_TOL and err_i <= LSTM_CELL_TOL and state_ok):
+            raise AssertionError(f"K5 disagrees with plain at P = {P}")
+        worst = max(worst, err, err_i)
+        shapes.append({"shape": label, "kernel_ms": kern_ms,
+                       "one_token_ms": one_ms, "ms": k_ms,
+                       "plain_ms": p_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by})
+    main = shapes[0]
+    return {"max_abs_err": worst, "kernel_ms": main["kernel_ms"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_note": "torch.lstm_cell in bf16 throughout (two GEMMs "
+                            "and a fused pointwise kernel), without the "
+                            "gather; the port does not call it",
+            "shapes": shapes}
+
+
 def phase_trunk1(dev):
     """Trunk1's bf16 forward with K3 and with cuDNN, for the record."""
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1114,7 +1224,8 @@ def phase_engine(dev, params, cfg=FLAGSHIP, frame_hw=(540, 720)):
               f"kernel launches on this path {launches}; "
               f"boxes/frame {[len(r['boxes']) for r in results[:4]]}")
         if not (launches["nms"] > 0 and launches["roi_align"] > 0
-                and launches["greedy_head"] > 0):
+                and launches["greedy_head"] > 0
+                and launches["lstm_cell"] > 0):
             raise AssertionError(f"a kernel never launched: {launches}")
 
         with torch.inference_mode():
@@ -4266,6 +4377,7 @@ def main(argv=None):
     k2 = phase_roi(dev)
     k3 = phase_conv_pool(dev)
     k4 = phase_greedy_head(dev)
+    k5 = phase_lstm_cell(dev)
     k2b = phase_roi_bwd(dev, args.before)
     phase_reference(dev)
     t0 = time.perf_counter()
@@ -4400,6 +4512,14 @@ def main(argv=None):
          "launches": serve["greedy_head"],
          "launches_by_path": {p: c["greedy_head"] for p, c in paths.items()},
          **k4},
+        {"name": "lstm_cell", "route": "cuda",
+         "source": "densecap_tpu_torch/ops/cuda/lstm_cell.cu",
+         "replaces": "none: _lstm_step and _embed of densecap_tpu/models/"
+                     "lstm.py:_greedy_decode, which the JAX package leaves "
+                     "to XLA",
+         "launches": serve["lstm_cell"],
+         "launches_by_path": {p: c["lstm_cell"] for p, c in paths.items()},
+         **k5},
     ]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

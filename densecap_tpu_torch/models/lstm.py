@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import greedy_head
+from ..ops import greedy_head, lstm_cell
 from ..utils.profiling import count, host_read, span
 from .vgg16 import Linear, dot_f32, frozen
 
@@ -91,14 +91,23 @@ class LanguageModel(nn.Module):
         return (device.type == "cuda" and self.compute_dtype == torch.bfloat16
                 and isinstance(self.proj, Linear) and self.proj.shard is None)
 
+    def cell_on_card(self, device):
+        """Whether a greedy decode on `device` takes kernel K5 for its LSTM
+        steps: on a CUDA device, in bf16, whatever the projection. The CPU
+        and f32 compute keep `embed` and `lstm_step`, as do teacher forcing
+        (`forward_train`, which needs their backward) and `beamsearch`."""
+        return device.type == "cuda" and self.compute_dtype == torch.bfloat16
+
     def greedy_decode(self, vectors, seq_length):
         """(P, D) RoI codes -> tokens (P, T) int32 and logprobs (P, T) f32.
 
         Stops once every row has emitted END (one host read per step).
         A row's tokens after its first END are END and its logprobs there
-        are 0; argmax takes the first maximum. Where `head_on_card`, each
-        step's head is one launch of K4 (`ops/greedy_head.py`), counted as
-        `decode.head_steps`.
+        are 0; argmax takes the first maximum. Where `cell_on_card`, each
+        LSTM step, the image's included, is one launch of K5
+        (`ops/lstm_cell.py`), counted as `decode.cell_steps`; where
+        `head_on_card`, each step's head is one launch of K4
+        (`ops/greedy_head.py`), counted as `decode.head_steps`.
         """
         with span("decode", vectors.device):
             P = vectors.shape[0]
@@ -108,8 +117,16 @@ class LanguageModel(nn.Module):
             H = self.Wh.shape[0]
             head = (greedy_head.prepare(self.proj.w, self.proj.b, P)
                     if self.head_on_card(dev) else None)
-            zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
-            h, c = self.lstm_step(zeros, zeros, self.encode_image(vectors))
+            cell = (lstm_cell.prepare(self.embed_w, self.Wx, self.Wh, self.b,
+                                      P)
+                    if self.cell_on_card(dev) else None)
+            x0 = self.encode_image(vectors)
+            if cell is None:
+                zeros = torch.zeros((P, H), dtype=torch.float32, device=dev)
+                h, c = self.lstm_step(zeros, zeros, x0)
+            else:
+                h, c = lstm_cell.step(cell, x=x0)
+                count("decode.cell_steps")
             tok = torch.full((P,), END, dtype=torch.long, device=dev)
             seq = torch.full((P, T), END, dtype=torch.int32, device=dev)
             lps = torch.zeros((P, T), dtype=torch.float32, device=dev)
@@ -117,7 +134,11 @@ class LanguageModel(nn.Module):
             for t in range(T):
                 if host_read("decode.reads", done.all()):
                     break
-                h, c = self.lstm_step(h, c, self.embed(tok))
+                if cell is None:
+                    h, c = self.lstm_step(h, c, self.embed(tok))
+                else:
+                    h, c = lstm_cell.step(cell, tok=tok)
+                    count("decode.cell_steps")
                 if head is not None:
                     tok = greedy_head.greedy_head_cuda(head, h, done, seq, lps,
                                                        t, END)

@@ -23,8 +23,8 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "nms.cu", _HERE / "roi_align.cu", _HERE / "conv_pool.cu",
-           _HERE / "greedy_head.cu")
-HEADERS = (_HERE / "hopper.cuh",)  # included by conv_pool.cu, greedy_head.cu
+           _HERE / "greedy_head.cu", _HERE / "lstm_cell.cu")
+HEADERS = (_HERE / "hopper.cuh",)  # included by the three Hopper kernels' sources
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
 
 # -fmad=false: no FMA contraction, so the NMS IoU rounds exactly as the
@@ -42,7 +42,8 @@ build_seconds = None
 # position gradients alone (roi_align_bwd, the trunk frozen) and with the
 # feature gradient (roi_align_bwd_feats).
 launches = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
-            "roi_align_bwd_feats": 0, "conv_pool": 0, "greedy_head": 0}
+            "roi_align_bwd_feats": 0, "conv_pool": 0, "greedy_head": 0,
+            "lstm_cell": 0}
 
 
 def reset_launches():
@@ -130,6 +131,9 @@ def load():
         lib.dc_greedy_head.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, vp,
                                        vp, vp, vp, ci, ci, vp, ci, vp]
         lib.dc_greedy_head.restype = ci
+        lib.dc_lstm_cell.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci,
+                                     ci, ci, vp]
+        lib.dc_lstm_cell.restype = ci
         _lib = lib
         return lib
 

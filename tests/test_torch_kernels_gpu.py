@@ -13,8 +13,11 @@ of the plain autograd gradient's scale, the fused conv+pool (K3) in f32 within 1
 bf16 no worse than the plain version against an f32 oracle, the greedy
 decode's vocab head (K4) with the plain head's tokens outside near ties,
 its first index on ties and its logprobs within 1e-4, alone and through
-a whole decode, and each
-wrapper counting exactly its own launches; the int8 product of
+a whole decode, the greedy decode's LSTM cell (K5) within CELL_TOL of the
+plain cell at P = 1..8000 and at widths off its tiles, and through a
+whole decode (bf16 and int8 heads) no further from the plain cell than
+the plain cell is from itself with its gates summed in one product, and
+each wrapper counting exactly its own launches; the int8 product of
 `ops/quant.py` on the card identical to the CPU's; each kernel launched
 on its tensors' device from a thread whose current device is another
 (skipped with fewer than two cards); two model replicas on one card
@@ -787,7 +790,8 @@ def test_greedy_decode_k4_against_the_plain_head(dev, monkeypatch):
     assert is_end.any(1).any() and not is_end[:, 0].all()
     first = torch.where(is_end.any(1), is_end.int().argmax(1), HEAD_T)
     steps = min(int(first.max()) + 1, HEAD_T)
-    assert build.launches == dict(NONE, greedy_head=steps)
+    assert build.launches == dict(NONE, greedy_head=steps,
+                                  lstm_cell=steps + 1)
 
     gaps = []
 
@@ -811,6 +815,206 @@ def test_greedy_decode_k4_against_the_plain_head(dev, monkeypatch):
     cols = torch.arange(HEAD_T, device=dev)[None]
     same = cols < torch.where(rows, at, HEAD_T)[:, None]
     assert float((lps - lps_p).abs()[same].max()) <= 1e-4
+
+
+# K5: the greedy decode's LSTM cell at the model's widths. Its sums are
+# those of the plain cell in another order: one f32 sum over E + H = 1024
+# bf16 products where the plain cell adds two sums of 512 and then the
+# bias. Each |product| is under ~0.06 here (h, c in the LSTM's range, the
+# embedding +-0.5, weights +-1/sqrt(H)), so a gate's rounding differs by
+# at most ~1024 x 2^-24 x its sum of |products| (< 2e-4), and in practice
+# by a few ulps of the gate; h and c follow through sigmoid and tanh, whose
+# slopes are at most 1. CELL_TOL bounds |K5 - plain| on h and c.
+CELL_TOL = 2e-5
+
+
+def _cell_lm(dev, seed=11, end_bias=0.0, quant=False):
+    from test_torch_greedy_head import make_lm
+
+    return make_lm(V=HEAD_N - 1, H=HEAD_K, D=4096, seed=seed,
+                   end_bias=end_bias, quant=quant).to(dev)
+
+
+@pytest.mark.parametrize("P", [1, 50, 127, 1000, 8000])
+@pytest.mark.parametrize("kind", ["token", "one_token", "image"])
+def test_lstm_cell_matches_plain(dev, P, kind):
+    """K5 against `embed` + `lstm_step` at H = 512: a token step from a
+    random state (tokens 0..V+2, so the clamp at both ends is taken; or
+    one token for every row, as a decode often has), and the image step
+    from zero state. h and c within CELL_TOL, the bf16 state K5 keeps for
+    the next step equal to bf16(h), one launch."""
+    from densecap_tpu_torch.ops import lstm_cell as lc
+    from test_torch_greedy_head import vectors
+
+    lm = _cell_lm(dev)
+    g = torch.Generator(device=dev).manual_seed(P)
+    cell = lc.prepare(lm.embed_w, lm.Wx, lm.Wh, lm.b, P)
+    with torch.no_grad():
+        if kind != "image":
+            h0 = torch.rand((P, HEAD_K), generator=g, device=dev) * 2 - 1
+            c0 = (torch.rand((P, HEAD_K), generator=g, device=dev) * 2 - 1) * 3
+            tok = torch.randint(0, HEAD_N + 2, (P,), generator=g, device=dev)
+            if kind == "one_token":
+                tok = torch.full_like(tok, 4321)
+            lc.load_state(cell, h0, c0)
+            want = lm.lstm_step(h0, c0, lm.embed(tok))
+            build.reset_launches()
+            got = lc.step(cell, tok=tok)
+        else:
+            x = lm.encode_image(vectors(P, 4096, P).to(dev))
+            zeros = torch.zeros((P, HEAD_K), device=dev)
+            want = lm.lstm_step(zeros, zeros, x)
+            build.reset_launches()
+            got = lc.step(cell, x=x)
+    torch.cuda.synchronize()
+    assert build.launches == dict(NONE, lstm_cell=1)
+    assert got[0] is cell.h and got[1] is cell.c and cell.cur == 1
+    for w, k in zip(want, got):
+        assert float((w - k).abs().max()) <= CELL_TOL
+    assert torch.equal(cell.hb[1], cell.h.bfloat16())
+
+
+def test_lstm_cell_pads_an_odd_width(dev):
+    """K5 at widths that are not multiples of 64 (E = 40, H = 67: padded
+    K chunks, a part-filled column tile, an odd row stride), two steps in
+    turns: h and c within CELL_TOL of the plain cell, the padded units of
+    the bf16 state left zero."""
+    from densecap_tpu_torch.ops import lstm_cell as lc
+    from test_torch_greedy_head import make_lm
+
+    P, H = 300, 67
+    lm = make_lm(V=50, H=H, D=40, seed=5).to(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    cell = lc.prepare(lm.embed_w, lm.Wx, lm.Wh, lm.b, P)
+    h = torch.rand((P, H), generator=g, device=dev) * 2 - 1
+    c = torch.rand((P, H), generator=g, device=dev) * 2 - 1
+    lc.load_state(cell, h, c)
+    with torch.no_grad():
+        for t in range(2):
+            tok = torch.randint(0, 53, (P,), generator=g, device=dev)
+            h, c = lm.lstm_step(h, c, lm.embed(tok))
+            got = lc.step(cell, tok=tok)
+            torch.cuda.synchronize()
+            assert float((got[0] - h).abs().max()) <= CELL_TOL
+            assert float((got[1] - c).abs().max()) <= CELL_TOL
+            h, c = got[0].clone(), got[1].clone()
+    assert cell.hb.shape[2] == 128 and (cell.hb[:, :, H:] == 0).all()
+
+
+def _plain_decode(lm, x, monkeypatch, one_product=False):
+    """A greedy decode on the card with the plain cell, K4's heads
+    recording the plain top-2 gap of each step; with `one_product`, the
+    cell sums its gates in one bf16 product over [x | h] and [Wx ; Wh]
+    (the order of K5's sums) instead of two. -> (seq, lps, gaps)."""
+    from densecap_tpu_torch.models.vgg16 import dot_f32
+    from densecap_tpu_torch.ops import greedy_head as gh
+
+    gaps, k4 = [], gh.greedy_head_cuda
+
+    def head(state, h, done, seq, lps, t, end):
+        top = (dot_f32(h, lm.proj.w, torch.bfloat16)
+               + lm.proj.b).topk(2, dim=1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        return k4(state, h, done, seq, lps, t, end)
+
+    W = torch.cat([lm.Wx, lm.Wh], 0)
+
+    def one_product_step(h, c, xx):
+        gates = dot_f32(torch.cat([xx, h], 1), W, torch.bfloat16) + lm.b
+        i, f, o, g = gates.chunk(4, dim=-1)
+        c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c2), c2
+
+    with monkeypatch.context() as m:
+        m.setattr(lm, "cell_on_card", lambda device: False)
+        m.setattr(gh, "greedy_head_cuda", head)
+        if one_product:
+            m.setattr(lm, "lstm_step", one_product_step)
+        with torch.no_grad():
+            seq, lps = lm.greedy_decode(x, HEAD_T)
+    return seq, lps, torch.stack(gaps, 1) if gaps else None
+
+
+def _agree(a, b, gaps):
+    """Rows where two decodes' tokens differ, each first at a step whose
+    top-2 gap in `gaps` is under 1e-3, and the logprobs' differences on
+    the steps before a row's first difference."""
+    (seq_a, lps_a), (seq_b, lps_b) = a, b
+    differ = seq_a != seq_b
+    rows = differ.any(1)
+    at = differ.int().argmax(1)
+    assert float(rows.float().mean()) < 0.02
+    if gaps is not None:
+        assert (gaps[rows, at[rows]] <= 1e-3).all()
+    cols = torch.arange(HEAD_T, device=seq_a.device)[None]
+    same = cols < torch.where(rows, at, HEAD_T)[:, None]
+    return (lps_a - lps_b).abs()[same]
+
+
+def test_greedy_decode_k5_against_the_plain_cell(dev, monkeypatch):
+    """A whole bf16 greedy decode at the model's widths (P = 1000, the
+    CLIs at batch 1; END raised so that rows finish at different steps):
+    K5's tokens equal those of the same decode with the plain cell, row by
+    row up to the first step where the plain top-2 gap is under 1e-3; one
+    K5 launch a step run, the image's included. Logprobs: h feeds the next
+    step and K4 in bf16, so where K5's h and the plain h differ by an
+    f32 reordering across a bf16 rounding edge, the operand moves by a
+    bf16 step and the decode carries it on (up to ~3e-3 here). That is no
+    more than the plain cell moves when its own gates are summed in
+    another order (one product over [x | h] where it adds two): K5's
+    logprobs stay within twice that control's largest difference, and the
+    typical row within 1e-6."""
+    from test_torch_greedy_head import vectors
+
+    lm = _cell_lm(dev, end_bias=5.0)
+    x = vectors(1000, 4096, 11).to(dev)
+    assert lm.cell_on_card(dev) and lm.head_on_card(dev)
+    build.reset_launches()
+    with torch.no_grad():
+        k5 = lm.greedy_decode(x, HEAD_T)
+    torch.cuda.synchronize()
+    is_end = k5[0] == HEAD_N
+    assert is_end.any(1).any() and not is_end[:, 0].all()
+    first = torch.where(is_end.any(1), is_end.int().argmax(1), HEAD_T)
+    steps = min(int(first.max()) + 1, HEAD_T)
+    assert build.launches == dict(NONE, greedy_head=steps,
+                                  lstm_cell=steps + 1)
+    *plain, gaps = _plain_decode(lm, x, monkeypatch)
+    *other, _ = _plain_decode(lm, x, monkeypatch, one_product=True)
+    assert gaps.shape[1] == steps
+    got = _agree(k5, plain, gaps)
+    control = _agree(other, plain, gaps)
+    assert float(got.max()) <= 2 * float(control.max()) + 1e-5
+    assert float(got.median()) <= 1e-6
+
+
+def test_greedy_decode_k5_on_the_int8_path(dev, monkeypatch):
+    """The int8 decode keeps the plain head (`QuantLinear`) and takes K5
+    for its cell: K5 launches and K4 never; against the same decode with
+    the plain cell, tokens equal on all but 2% of the rows and logprobs on
+    the steps before a row's first difference within twice what the plain
+    cell moves when its gates are summed in one product (the int8 head
+    codes h by row, so a reordering that moves h across a rounding edge
+    moves a code)."""
+    from test_torch_greedy_head import vectors
+
+    lm = _cell_lm(dev, end_bias=5.0, quant=True)
+    x = vectors(1000, 4096, 11).to(dev)
+    assert lm.cell_on_card(dev) and not lm.head_on_card(dev)
+    build.reset_launches()
+    with torch.no_grad():
+        k5 = lm.greedy_decode(x, HEAD_T)
+    torch.cuda.synchronize()
+    assert build.launches["greedy_head"] == 0
+    assert build.launches["lstm_cell"] >= 2
+    build.reset_launches()
+    *plain, _ = _plain_decode(lm, x, monkeypatch)
+    *other, _ = _plain_decode(lm, x, monkeypatch, one_product=True)
+    assert build.launches == NONE
+    got = _agree(k5, plain, None)
+    control = _agree(other, plain, None)
+    assert float(got.max()) <= 2 * float(control.max()) + 1e-5
+    assert float(got.median()) <= 2 * float(control.median()) + 1e-6
 
 
 def _vit_block(window, C=768, heads=12, seed=3):
