@@ -313,7 +313,7 @@ from densecap_tpu_torch import native_lib
 from densecap_tpu_torch.config import DenseCapConfig
 from densecap_tpu_torch.data.loader import BATCH_KEYS, BucketedLoader
 from densecap_tpu_torch.eval.eval_split import eval_split
-from densecap_tpu_torch.models.vgg16 import (TRUNK1_CFG, Linear, Recog, Trunk,
+from densecap_tpu_torch.models.vgg16 import (TRUNK1_CFG, Recog, Trunk,
                                              feat_extent)
 from densecap_tpu_torch.ops import conv_pool as cp
 from densecap_tpu_torch.ops import nms as nms_mod
@@ -321,6 +321,7 @@ from densecap_tpu_torch.ops import quant
 from densecap_tpu_torch.ops import roi_align as roi_mod
 from densecap_tpu_torch.ops.boxes import xcycwh_to_x1y1x2y2
 from densecap_tpu_torch.ops.cuda import build
+from densecap_tpu_torch.ops.linear import Linear
 from densecap_tpu_torch.parallel import distributed, launch
 from densecap_tpu_torch.parallel.mesh import gather_optimizer_state
 from densecap_tpu_torch.parallel.train_step import Trainer
@@ -773,7 +774,7 @@ def greedy_head_library(h, w, b):
 
 def phase_greedy_head(dev):
     """K4 at the decode's two main shapes against the plain head."""
-    from densecap_tpu_torch.models.vgg16 import dot_f32
+    from densecap_tpu_torch.ops.linear import dot_f32
     from densecap_tpu_torch.ops import greedy_head as gh
 
     K, N, T = FLAGSHIP.rnn_size, FLAGSHIP.vocab_size + 1, FLAGSHIP.seq_length
@@ -4171,6 +4172,11 @@ TOOLS = (
 )
 # K1 calls of at least this many boxes an image are the top-k -1 shapes
 TOOLS_K1_MIN_N = 10000
+# the stage profilers' roots (their JSON key): the device ms of a root's
+# children sum to within STAGE_SUM_SHARE of the root's
+STAGE_ROOTS = {"torch_stage_profile_b8": "forward_ms",
+               "torch_stage_profile_train": "step_ms"}
+STAGE_SUM_SHARE = 0.02
 
 
 def run_tool(name, argv):
@@ -4192,6 +4198,9 @@ def run_tool(name, argv):
     last = json.loads(buf.getvalue().strip().splitlines()[-1])
     shown = {k: v for k, v in last.items() if k not in ("launches",
                                                        "device")}
+    if "stages_ms" in shown:  # a stage profiler's span table
+        shown["stages_ms"] = {k: v["device_ms"]
+                              for k, v in shown["stages_ms"].items()}
     print(f"[tools] {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f}"
           f" s; launches {counts}; {json.dumps(shown)}", flush=True)
     return last, counts
@@ -4276,7 +4285,9 @@ def phase_tools(dev):
     the runs K1 at the top-k -1 shapes (every anchor: 18 360 boxes an
     image on the 720x544 bucket, 24 300 on the square) and K3 at the
     tune's train shapes (B = 16) are held to their plain versions and
-    timed. -> ({path: launches}, summary, {kernel: records})."""
+    timed. The stage profilers' rows are the program's own spans; each
+    root's children must sum to within `STAGE_SUM_SHARE` of it. ->
+    ({path: launches}, summary, {kernel: records})."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch_make_synth_vg as synth
 
@@ -4322,6 +4333,14 @@ def phase_tools(dev):
                 "--allow_fallback_scorer"])
     finally:
         nms_mod.nms_cuda, cp.conv_relu_pool_cuda = plain
+    for name, key in STAGE_ROOTS.items():
+        got = summary[name]
+        apart = abs(got["sum_ms"] - got[key]) / got[key]
+        print(f"[tools] {name}: the root's children {got['sum_ms']:.3f} of "
+              f"its {got[key]:.3f} device ms ({100 * apart:.2f}% apart)")
+        if apart > STAGE_SUM_SHARE:
+            raise AssertionError(f"[tools] {name}: the root's children are "
+                                 f"{100 * apart:.2f}% from the root")
     for name, c in counts.items():
         if name.endswith(("bench_torch", "stage_profile_b8", "serving_modes"
                           "_bench", "beam_profile", "real_eval")):

@@ -18,12 +18,12 @@ from torch import nn
 
 from ..ops import losses as L
 from ..ops.boxes import clip_boxes, xcycwh_to_x1y1x2y2
+from ..ops.linear import dot_f32, frozen
 from ..ops.nms import nms
 from ..ops.transforms import apply_box_transform
 from ..utils.profiling import span
 from .localization import gather_rows, localize_test, localize_train
 from .lstm import get_target
-from .vgg16 import dot_f32, frozen
 
 
 class TestOutput(NamedTuple):

@@ -17,6 +17,7 @@ from ..ops.nms import nms
 from ..ops.roi_align import roi_align
 from ..ops.sampler import sample_rois
 from ..ops.transforms import invert_box_transform
+from ..utils.profiling import span
 from .vgg16 import feat_extent
 
 
@@ -69,8 +70,9 @@ def localize_train(rpn, feats, img_h, img_w, gt_boxes, gt_labels, gt_valid,
     B, _, Hf, Wf = feats.shape
     fh, fw = feat_extent(img_h, img_w)
     center_ok = _anchor_center_valid(Hf, Wf, anchor_sizes.shape[0], fh, fw)
-    rpn_out = rpn(feats, anchor_sizes, cfg.field_centers,
-                  box_reg_decay=cfg.box_reg_decay, decay_mask=center_ok)
+    with span("rpn"):
+        rpn_out = rpn(feats, anchor_sizes, cfg.field_centers,
+                      box_reg_decay=cfg.box_reg_decay, decay_mask=center_ok)
 
     bounds = None
     if cfg.train_remove_outbounds_boxes:
@@ -80,12 +82,14 @@ def localize_train(rpn, feats, img_h, img_w, gt_boxes, gt_labels, gt_valid,
     dead = torch.tensor([-1e6, -1e6, 1.0, 1.0], device=feats.device)
     boxes_eff = torch.where(center_ok[..., None], rpn_out.boxes.detach(), dead)
     dbg = debug_sampler or {}
-    s = sample_rois(
-        generator, boxes_eff, gt_boxes, gt_valid,
-        batch_size=cfg.sampler_batch_size, low_thresh=cfg.sampler_low_thresh,
-        high_thresh=cfg.sampler_high_thresh, bounds=bounds,
-        candidate_mask=center_ok, debug_pos_sample_idx=dbg.get("pos"),
-        debug_neg_sample_idx=dbg.get("neg"))
+    with span("sampler"):
+        s = sample_rois(
+            generator, boxes_eff, gt_boxes, gt_valid,
+            batch_size=cfg.sampler_batch_size,
+            low_thresh=cfg.sampler_low_thresh,
+            high_thresh=cfg.sampler_high_thresh, bounds=bounds,
+            candidate_mask=center_ok, debug_pos_sample_idx=dbg.get("pos"),
+            debug_neg_sample_idx=dbg.get("neg"))
 
     pos_boxes = gather_rows(rpn_out.boxes, s.pos_input_idx)
     pos_anchors = rpn_out.anchors[s.pos_input_idx]
@@ -97,9 +101,10 @@ def localize_train(rpn, feats, img_h, img_w, gt_boxes, gt_labels, gt_valid,
     pos_target_labels = gather_rows(gt_labels, s.pos_target_idx)
 
     roi_boxes = torch.cat([pos_boxes, neg_boxes], 1)
-    roi_feats = roi_align(
-        feats.permute(0, 2, 3, 1).contiguous(), roi_boxes, img_h, img_w,
-        fh, fw, cfg.output_height, cfg.output_width)
+    with span("roi_align"):
+        roi_feats = roi_align(
+            feats.permute(0, 2, 3, 1).contiguous(), roi_boxes, img_h, img_w,
+            fh, fw, cfg.output_height, cfg.output_width)
 
     # objectness: positives are class 0, negatives class 1
     obj_pos = L.cross_entropy(pos_scores, torch.zeros_like(s.pos_input_idx),
@@ -132,35 +137,38 @@ def localize_test(rpn, feats, img_h, img_w, cfg, anchor_sizes, *,
     K = cfg.test_max_proposals if max_proposals is None else max_proposals
     _, _, Hf, Wf = feats.shape
 
-    rpn_out = rpn(feats, anchor_sizes, cfg.field_centers)
-    fh, fw = feat_extent(img_h, img_w)
-    valid = _anchor_center_valid(Hf, Wf, anchor_sizes.shape[0], fh, fw)
-    boxes, clip_valid = clip_boxes(rpn_out.boxes, img_w[:, None],
-                                   img_h[:, None])
-    valid = valid & clip_valid
-    probs = torch.softmax(rpn_out.scores, dim=-1)[..., 0]
+    with span("rpn"):
+        rpn_out = rpn(feats, anchor_sizes, cfg.field_centers)
+    with span("proposals"):
+        fh, fw = feat_extent(img_h, img_w)
+        valid = _anchor_center_valid(Hf, Wf, anchor_sizes.shape[0], fh, fw)
+        boxes, clip_valid = clip_boxes(rpn_out.boxes, img_w[:, None],
+                                       img_h[:, None])
+        valid = valid & clip_valid
+        probs = torch.softmax(rpn_out.scores, dim=-1)[..., 0]
 
-    pre_k = cfg.test_pre_nms_topk
-    if 0 < pre_k < boxes.shape[1]:
-        # ascending stable sort of the negated scores: ties keep anchor
-        # order, invalid (-inf) entries go to the tail
-        masked = torch.where(valid, probs, -torch.inf)
-        neg_sorted, sorted_idx = torch.sort(-masked, dim=1, stable=True)
-        top_scores = -neg_sorted[:, :pre_k]
-        top_idx = sorted_idx[:, :pre_k]
-        sub_idx, roi_valid = nms(
-            xcycwh_to_x1y1x2y2(gather_rows(boxes, top_idx)), top_scores,
-            nms_thresh, K, valid=top_scores > -torch.inf, presorted=True)
-        idx = top_idx.gather(1, sub_idx.long())
-    else:
-        idx, roi_valid = nms(xcycwh_to_x1y1x2y2(boxes), probs, nms_thresh,
-                             K, valid=valid)
-    roi_boxes = gather_rows(boxes, idx)
-    roi_scores = gather_rows(probs, idx)
+        pre_k = cfg.test_pre_nms_topk
+        if 0 < pre_k < boxes.shape[1]:
+            # ascending stable sort of the negated scores: ties keep
+            # anchor order, invalid (-inf) entries go to the tail
+            masked = torch.where(valid, probs, -torch.inf)
+            neg_sorted, sorted_idx = torch.sort(-masked, dim=1, stable=True)
+            top_scores = -neg_sorted[:, :pre_k]
+            top_idx = sorted_idx[:, :pre_k]
+            sub_idx, roi_valid = nms(
+                xcycwh_to_x1y1x2y2(gather_rows(boxes, top_idx)), top_scores,
+                nms_thresh, K, valid=top_scores > -torch.inf, presorted=True)
+            idx = top_idx.gather(1, sub_idx.long())
+        else:
+            idx, roi_valid = nms(xcycwh_to_x1y1x2y2(boxes), probs,
+                                 nms_thresh, K, valid=valid)
+        roi_boxes = gather_rows(boxes, idx)
+        roi_scores = gather_rows(probs, idx)
 
-    roi_feats = roi_align(
-        feats.permute(0, 2, 3, 1).contiguous(), roi_boxes, img_h, img_w,
-        fh, fw, cfg.output_height, cfg.output_width)
+    with span("roi_align"):
+        roi_feats = roi_align(
+            feats.permute(0, 2, 3, 1).contiguous(), roi_boxes, img_h, img_w,
+            fh, fw, cfg.output_height, cfg.output_width)
     return LocalizeTestOut(
         roi_feats=roi_feats, roi_boxes=roi_boxes, roi_scores=roi_scores,
         roi_valid=roi_valid, num_rois=roi_valid.sum(1, dtype=torch.int32))

@@ -16,8 +16,8 @@ import torch
 from torch import nn
 
 from ..ops import greedy_head, lstm_cell
+from ..ops.linear import Linear, dot_f32, frozen
 from ..utils.profiling import count, host_read, span
-from .vgg16 import Linear, dot_f32, frozen
 
 
 class LanguageModel(nn.Module):

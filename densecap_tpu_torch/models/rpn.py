@@ -15,8 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.linear import frozen
 from ..ops.transforms import apply_box_transform, make_anchors, reshape_box_features
-from .vgg16 import frozen
 
 
 class RPNOut(NamedTuple):

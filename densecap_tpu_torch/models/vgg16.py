@@ -18,9 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import linear
 from ..ops.conv_pool import conv_relu_pool, extent_mask
 from ..ops.quant import QuantLinear
-from ..parallel.tensor_parallel import copy_to_model, gather_from_model
 
 # (name, out_channels) per conv; 'M' = 2x2/2 max pool.
 TRUNK1_CFG = [("conv1_1", 64), ("conv1_2", 64), "M",
@@ -28,84 +28,6 @@ TRUNK1_CFG = [("conv1_1", 64), ("conv1_2", 64), "M",
 TRUNK2_CFG = [("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), "M",
               ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), "M",
               ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512)]
-
-
-def frozen(t):
-    return nn.Parameter(t, requires_grad=False)
-
-
-class _DotF32(torch.autograd.Function):
-    """bf16 GEMMs with f32 outputs, forward and backward, on the card."""
-
-    @staticmethod
-    def forward(ctx, x, w, cd):
-        xc, wc = x.to(cd), w.to(cd)
-        ctx.save_for_backward(xc, wc)
-        return torch.mm(xc, wc, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        xc, wc = ctx.saved_tensors
-        gc = g.to(xc.dtype)
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.mm(gc, wc.t(), out_dtype=torch.float32)
-        if ctx.needs_input_grad[1]:
-            gw = torch.mm(xc.t(), gc, out_dtype=torch.float32)
-        return gx, gw, None
-
-
-def dot_f32(x, w, cd):
-    """2-D `x @ w` with operands in the compute dtype `cd` and an f32 result.
-
-    The twin of `jnp.dot(x.astype(cd), w.astype(cd),
-    preferred_element_type=float32)`: bf16 operands, f32 accumulation,
-    f32 output. On the card a bf16 product is `_DotF32`, whose backward
-    is bf16 GEMMs with f32 outputs as well, so an f32 master weight gets
-    an f32 gradient. On the CPU the bf16 operands are widened to f32,
-    which is exact, so the products and the f32 sum are the same.
-    """
-    if cd == torch.float32:
-        return x.float() @ w.float()
-    if x.is_cuda:
-        return _DotF32.apply(x, w, cd)
-    return x.to(cd).float() @ w.to(cd).float()
-
-
-class Linear(nn.Module):
-    """A full-precision layer: weight (in, out) and f32 bias, `x @ w + b`
-    by `dot_f32`. Its quantized counterpart is `ops.quant.QuantLinear`;
-    both are called as `layer(x, compute_dtype)`.
-
-    With a `shard` (`parallel.tensor_parallel.ColumnShard`) the layer is
-    column-parallel: `w` and `b` hold this rank's columns, the input is
-    copied into the model group and the output gathered to full width,
-    so callers see the unsharded layer. The input enters the group as
-    f32 (exact for a bf16 input): on the card `dot_f32` then returns each
-    rank's part of its gradient in f32, the group sums them in f32, and
-    the sum is rounded to the input's dtype once, as the unsharded
-    layer's one product is. (On the CPU a bf16 product rounds each part
-    first.)"""
-
-    def __init__(self, w, b, shard=None):
-        super().__init__()
-        self.w, self.b = frozen(w), frozen(b)
-        self.shard = shard
-
-    def forward(self, x, compute_dtype):
-        if self.shard is None:
-            return dot_f32(x, self.w, compute_dtype) + self.b
-        x = copy_to_model(x.float(), self.shard)
-        return gather_from_model(dot_f32(x, self.w, compute_dtype) + self.b,
-                                 self.shard)
-
-    def full(self):
-        """(w, b) at full width, detached: this rank's own without a
-        shard, else gathered over the model group (a collective)."""
-        w, b = self.w.detach(), self.b.detach()
-        if self.shard is None:
-            return w, b
-        return self.shard.gather(w), self.shard.gather(b)
 
 
 class Trunk(nn.Module):
@@ -119,9 +41,9 @@ class Trunk(nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.weights = nn.ParameterDict(
-            {name: frozen(w) for name, (w, _) in convs.items()})
+            {name: linear.frozen(w) for name, (w, _) in convs.items()})
         self.biases = nn.ParameterDict(
-            {name: frozen(b) for name, (_, b) in convs.items()})
+            {name: linear.frozen(b) for name, (_, b) in convs.items()})
 
     def forward(self, x, eh, ew, fuse=False):
         """x: (B, C, H, W) channels_last; eh / ew: (B,) f32 true extents.
@@ -164,9 +86,9 @@ class Trunk(nn.Module):
 
 class Recog(nn.Module):
     """fc6 -> ReLU -> dropout -> fc7 -> ReLU -> dropout on flattened
-    (7, 7, C) RoI features. Each layer is a `Linear` or, for int8
-    inference, a `QuantLinear` (JAX `apply_recog` dispatches the same
-    way)."""
+    (7, 7, C) RoI features. Each layer is an `ops.linear.Linear` or, for
+    int8 inference, a `QuantLinear` (JAX `apply_recog` dispatches the
+    same way)."""
 
     def __init__(self, fc6, fc7, compute_dtype):
         super().__init__()

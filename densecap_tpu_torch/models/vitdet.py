@@ -45,8 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import VGG_MEAN_BGR
+from ..ops.linear import dot_f32, frozen
 from ..utils.profiling import count, span
-from .vgg16 import dot_f32, frozen
 
 VIT_MEAN_RGB = (123.675, 116.28, 103.53)
 VIT_STD_RGB = (58.395, 57.12, 57.375)

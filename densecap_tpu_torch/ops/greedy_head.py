@@ -27,8 +27,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..models.vgg16 import dot_f32
 from .cuda import build
+from .linear import dot_f32
 
 TILE_N = 128      # vocab columns per K4 tile
 CHUNK_K = 64      # K per K4 stage

@@ -62,8 +62,9 @@ from ..config import DenseCapConfig
 from ..models.densecap import DenseCap
 from ..models.lstm import LanguageModel
 from ..models.rpn import RPN
-from ..models.vgg16 import TRUNK1_CFG, TRUNK2_CFG, Linear, Recog, Trunk
+from ..models.vgg16 import TRUNK1_CFG, TRUNK2_CFG, Recog, Trunk
 from ..models.vitdet import VIT_TRAINING, Attention, Block, ViTDet
+from ..ops.linear import Linear
 from ..ops.quant import QuantLinear, is_quantized
 from ..parallel import distributed
 from ..parallel.mesh import param_shard_dims, shard_params

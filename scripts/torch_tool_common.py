@@ -1,5 +1,6 @@
 """What the port's measurement scripts share: the device rules, the card's
-description, CUDA-event timing, the model-size flags and random inputs.
+description, CUDA-event timing, the model-size flags, random inputs and
+the table of the program's spans.
 
 Device rules: a script runs on `cuda` unless the caller passes `--device
 cpu`; without a card it stops (`card`), and it never falls back to the
@@ -15,6 +16,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +28,7 @@ if str(HERE.parent) not in sys.path:
 
 from densecap_tpu_torch.config import DenseCapConfig  # noqa: E402
 from densecap_tpu_torch.ops.cuda import build  # noqa: E402
+from densecap_tpu_torch.utils import profiling  # noqa: E402
 
 NOT_MEASURED = "not measured"
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -202,3 +205,80 @@ def emit(obj):
     """The last line: one JSON object."""
     print(json.dumps(obj), flush=True)
     return obj
+
+
+def span_rows(start_ns, end_ns):
+    """Every span the program recorded in [start_ns, end_ns]
+    (perf_counter_ns), one row per (parent, name), in the order the
+    program opened them: {"key": "parent/name" (the name alone at a
+    root), "name", "parent", "depth", "count", "host_ms", "device_ms",
+    "counters"}, the means per span of `profiling.STORE.summary`."""
+    store = profiling.STORE
+    rows, seen = [], set()
+    for rec in sorted(store.spans(start_ns=start_ns, end_ns=end_ns),
+                      key=lambda r: r.t0):
+        parent = rec.parent_name
+        if (parent, rec.name) in seen:
+            continue
+        seen.add((parent, rec.name))
+        depth, up = 0, rec.parent
+        while up is not None:
+            depth, up = depth + 1, up.parent
+        rows.append({"key": rec.name if parent is None
+                     else f"{parent}/{rec.name}",
+                     "name": rec.name, "parent": parent, "depth": depth,
+                     **store.summary(rec.name, parent=parent,
+                                     start_ns=start_ns, end_ns=end_ns)})
+    return rows
+
+
+def children_sum(rows, root):
+    """{"host_ms", "device_ms"}: the sums over the rows directly under the
+    root row `root`."""
+    kids = [r for r in rows if r["depth"] == 1 and r["parent"] == root]
+    return {k: sum(r[k] for r in kids) for k in ("host_ms", "device_ms")}
+
+
+def print_span_rows(rows, dev):
+    """The rows as a table indented by depth, then each root's children's
+    sum against the root; times read NOT_MEASURED off a card. -> the
+    table for the JSON line, keyed as the rows."""
+    def ms(x):
+        x = measured(x, dev)
+        return f"{x:>12s}" if isinstance(x, str) else f"{x:12.3f}"
+
+    table = {}
+    print(f"{'span':32s} {'device ms':>12s} {'host ms':>12s}  spans",
+          flush=True)
+    for r in rows:
+        counters = {k: {"n": c["n"], "host_ms": measured(c["host_ms"], dev)}
+                    for k, c in r["counters"].items()}
+        shown = "".join(f"; {k} {c['n']:g}" + (
+            f" ({c['host_ms']:.3f} ms host)" if dev.type == "cuda"
+            and c["host_ms"] else "") for k, c in counters.items())
+        print(f"{'  ' * r['depth'] + r['name']:32s} {ms(r['device_ms'])} "
+              f"{ms(r['host_ms'])}  {r['count']}{shown}", flush=True)
+        table[r["key"]] = {"device_ms": measured(r["device_ms"], dev),
+                           "host_ms": measured(r["host_ms"], dev),
+                           "count": r["count"], "counters": counters}
+    for r in rows:
+        if r["depth"] == 0 and any(x["parent"] == r["name"] for x in rows):
+            kids = children_sum(rows, r["name"])
+            print(f"children of {r['name']}: device {ms(kids['device_ms'])}"
+                  f" of {ms(r['device_ms'])} ms, host "
+                  f"{ms(kids['host_ms'])} of {ms(r['host_ms'])} ms",
+                  flush=True)
+    return table
+
+
+def recorded(fn):
+    """fn() with the program's spans recording and every launch count at
+    0 first: (result, the rows of the spans it opened, launches)."""
+    was = profiling.set_recording(True)
+    start = time.perf_counter_ns()
+    try:
+        out, counts = launches_of(fn)
+    finally:
+        profiling.set_recording(was)
+    return out, span_rows(start, time.perf_counter_ns()), counts
+

@@ -22,7 +22,7 @@ from densecap_tpu.models import densecap as jd
 from densecap_tpu.models import lstm as jl
 from densecap_tpu_torch.config import DenseCapConfig
 from densecap_tpu_torch.models.lstm import LanguageModel
-from densecap_tpu_torch.models.vgg16 import Linear
+from densecap_tpu_torch.ops.linear import Linear
 from densecap_tpu_torch.utils.checkpoint import to_torch
 
 torch.set_num_threads(2)

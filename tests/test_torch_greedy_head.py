@@ -16,9 +16,9 @@ import pytest
 import torch
 
 from densecap_tpu_torch.models.lstm import LanguageModel
-from densecap_tpu_torch.models.vgg16 import Linear
 from densecap_tpu_torch.ops import greedy_head as gh
 from densecap_tpu_torch.ops.cuda import build
+from densecap_tpu_torch.ops.linear import Linear
 from densecap_tpu_torch.ops.quant import QuantLinear, quantize_linear
 
 BF16 = torch.bfloat16

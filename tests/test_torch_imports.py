@@ -2,8 +2,10 @@
 machine with the card has none of them. Checked in a fresh interpreter, so this
 test process's own imports do not count; the port's scripts too. Also the help epilog that names
 the JAX CLIs' flags the port leaves out (and no longer --data_parallel or
---model_parallel, which it has)."""
+--model_parallel, which it has), and that the kernels' layer (`ops/`) imports
+nothing of the models' (`models/`)."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -85,3 +87,39 @@ def test_epilog_names_the_flags_left_out():
                  "--canvas_buckets", "--timing", "--profile_dir",
                  "--coordinator_address", "--num_processes", "--process_id"):
         assert flag in help_text
+
+
+def test_ops_import_no_model():
+    """No module under densecap_tpu_torch/ops/ imports from
+    densecap_tpu_torch/models/, and the compute-dtype product lives in
+    ops/linear.py alone: models/vgg16.py neither defines nor re-exports
+    it."""
+    from densecap_tpu_torch.models import vgg16
+    from densecap_tpu_torch.ops import linear
+
+    ops = os.path.join(ROOT, "densecap_tpu_torch", "ops")
+    bad = []
+    for folder, _, files in os.walk(ops):
+        package = os.path.relpath(folder, ROOT).split(os.sep)
+        for name in sorted(f for f in files if f.endswith(".py")):
+            with open(os.path.join(folder, name)) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.ImportFrom):
+                    base = package[:len(package) - node.level + 1] \
+                        if node.level else []
+                    mods = [".".join(base + (node.module or "").split("."))]
+                    if not node.module:
+                        mods = [".".join(base + [a.name])
+                                for a in node.names]
+                elif isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                else:
+                    continue
+                bad += [(name, m) for m in mods
+                        if m.startswith("densecap_tpu_torch.models")]
+    assert bad == []
+    for name in ("dot_f32", "_DotF32", "Linear", "frozen"):
+        assert not hasattr(vgg16, name), name
+        assert getattr(linear, name).__module__ == linear.__name__
+

@@ -678,7 +678,7 @@ def _head_inputs(dev, P, seed, K=HEAD_K, N=HEAD_N):
 
 def _clear_rows(h, w, b, tol=1e-3):
     """Rows whose plain top-2 logit gap exceeds `tol`."""
-    from densecap_tpu_torch.models.vgg16 import dot_f32
+    from densecap_tpu_torch.ops.linear import dot_f32
 
     top = (dot_f32(h, w, torch.bfloat16) + b).topk(2, dim=1).values
     return top[:, 0] - top[:, 1] > tol
@@ -774,7 +774,7 @@ def test_greedy_decode_k4_against_the_plain_head(dev, monkeypatch):
     K4's tokens equal those of the same decode whose heads are the plain
     version, row by row up to the first step where the plain top-2 gap is
     under 1e-3, logprobs within 1e-4 there; one launch a step run."""
-    from densecap_tpu_torch.models.vgg16 import dot_f32
+    from densecap_tpu_torch.ops.linear import dot_f32
     from densecap_tpu_torch.ops import greedy_head as gh
     from test_torch_greedy_head import make_lm, vectors
 
@@ -906,7 +906,7 @@ def _plain_decode(lm, x, monkeypatch, one_product=False):
     recording the plain top-2 gap of each step; with `one_product`, the
     cell sums its gates in one bf16 product over [x | h] and [Wx ; Wh]
     (the order of K5's sums) instead of two. -> (seq, lps, gaps)."""
-    from densecap_tpu_torch.models.vgg16 import dot_f32
+    from densecap_tpu_torch.ops.linear import dot_f32
     from densecap_tpu_torch.ops import greedy_head as gh
 
     gaps, k4 = [], gh.greedy_head_cuda

@@ -28,12 +28,15 @@ TINY = DenseCapConfig(
     sampler_batch_size=16, max_gt_boxes=6, drop_prob=0.0,
     compute_dtype=torch.float32)
 INFER_TREE = {"infer.forward": None, "trunk": "infer.forward",
-              "localize": "infer.forward", "recog": "infer.forward",
-              "final_nms": "infer.forward", "decode": "infer.forward"}
+              "localize": "infer.forward", "rpn": "localize",
+              "proposals": "localize", "roi_align": "localize",
+              "recog": "infer.forward", "final_nms": "infer.forward",
+              "decode": "infer.forward"}
 TRAIN_TREE = {"train.step": None, "train.forward": "train.step",
               "trunk": "train.forward", "localize": "train.forward",
-              "recog": "train.forward", "lm.train": "train.forward",
-              "train.backward": "train.step",
+              "rpn": "localize", "sampler": "localize",
+              "roi_align": "localize", "recog": "train.forward",
+              "lm.train": "train.forward", "train.backward": "train.step",
               "train.optimizer": "train.step"}
 
 

@@ -6,10 +6,10 @@ scripts, on the CPU at a tiny config (test_torch_slice's TINY, f32).
     (bridged from JAX's `init_params`) and canvases: tokens, validity and
     `num` exact, boxes and scores within 1e-4 (the tolerance of
     tests/test_torch_slice.py), the checksum within 1e-4 relative;
-  * the stage profilers' chains against the port's own programs, exact
-    in f32: the inference stages against `forward_test_batch` (greedy at
-    both top-k branches, and beam 2), the train stages' losses against
-    `forward_train` (the same generator draws, dropout on);
+  * the stage profilers' rows against the spans the program opens: the
+    inference tool's against `forward_test_batch`'s (at both top-k
+    branches), the train tool's against `Trainer.step`'s, and a span
+    added to the program shows in the table with no edit to the tool;
   * `inference_flops` / `train_flops` against the FLOPs of every
     `dot_general` and `conv_general_dilated` in the JAX program's jaxpr
     (loop bodies times their trip counts; the decode's while loop runs
@@ -47,6 +47,9 @@ from densecap_tpu.models import densecap as jd
 from densecap_tpu.models import lstm as jlstm
 from densecap_tpu.parallel import train_step as jts
 from densecap_tpu_torch.config import DenseCapConfig
+from densecap_tpu_torch.models import densecap
+from densecap_tpu_torch.parallel.train_step import Trainer
+from densecap_tpu_torch.utils import profiling
 from densecap_tpu_torch.utils.checkpoint import save_params, to_torch
 from densecap_tpu_torch.utils.image import normalize_uint8_images
 
@@ -60,6 +63,7 @@ import torch_mfu_estimate as mfu  # noqa: E402
 import torch_prenms_topk_check as topk_check  # noqa: E402
 import torch_stage_profile_b8 as stage_b8  # noqa: E402
 import torch_stage_profile_train as stage_train  # noqa: E402
+import torch_tool_common as tc  # noqa: E402
 import torch_transfer_latency_probe as probe  # noqa: E402
 
 torch.set_num_threads(2)
@@ -125,32 +129,66 @@ def test_bench_program_matches_jax(params):
                                                                  rel=TOL)
 
 
-@pytest.mark.parametrize("pre_k,beam", [(6000, 0), (64, 0), (64, 2)],
-                         ids=["all_anchors", "presorted", "beam2"])
-def test_stage_chain_is_forward_test_batch(params, pre_k, beam):
-    model = to_torch(params[1], PCFG.replace(test_pre_nms_topk=pre_k), "cpu")
-    raw, h, w = stage_b8.make_inputs(2, 96, 96, 72, torch.device("cpu"))
-    got = stage_b8.run_stages(model, raw, h, w, beam)["out"]
-    ref = model.forward_test_batch(normalize_uint8_images(raw, h, w), h, w,
-                                   use_beam=beam)
-    for name in ref._fields:
-        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+def opened(fn):
+    """(parent, name) of each span fn() opens, in the order it opens
+    them."""
+    was, since = profiling.set_recording(True), profiling.STORE.added
+    try:
+        fn()
+    finally:
+        profiling.set_recording(was)
+    recs = list(profiling.STORE.records)[
+        len(profiling.STORE.records) - (profiling.STORE.added - since):]
+    return [(r.parent_name, r.name) for r in sorted(recs, key=lambda r: r.t0)]
 
 
-def test_train_chain_is_forward_train(params):
-    cfg = PCFG.replace(drop_prob=0.5)
-    model = to_torch(params[1], cfg, "cpu", train=True)
-    from torch_tool_common import train_batch
-    batch = train_batch(cfg, 2, 96, 96, 72, torch.device("cpu"), valid_gt=3)
-    batch["gt_boxes"][:, 1] = torch.tensor([40.0, 30.0, 24.0, 20.0])
-    got = stage_train.chain(model, batch, torch.Generator().manual_seed(5))
-    ref = model.forward_train(
-        batch["image"], batch["height"], batch["width"], batch["gt_boxes"],
-        batch["gt_labels"], batch["gt_valid"],
-        generator=torch.Generator().manual_seed(5))
-    assert set(got["losses"]) == set(ref)
-    for k, v in ref.items():
-        assert torch.equal(got["losses"][k], v), k
+@pytest.mark.parametrize("case", ["all_anchors", "presorted", "train"])
+def test_stage_profile_rows_are_the_programs_spans(params, case):
+    cpu = torch.device("cpu")
+    if case == "train":
+        cfg = PCFG.replace(drop_prob=0.5)
+        trainer = Trainer(to_torch(params[1], cfg, "cpu", train=True),
+                          learning_rate=1e-5)
+        batch = tc.train_batch(cfg, 2, 96, 96, 72, cpu, valid_gt=3)
+        batch["gt_boxes"][:, 1] = torch.tensor([40.0, 30.0, 24.0, 20.0])
+        gen = torch.Generator().manual_seed(5)
+        want = opened(lambda: trainer.step(batch, generator=gen))
+        _, rows, _ = stage_train.profile(trainer, batch, gen, 2)
+        root, own = stage_train.ROOT, []
+    else:
+        pre_k = {"all_anchors": 6000, "presorted": 64}[case]
+        model = to_torch(params[1], PCFG.replace(test_pre_nms_topk=pre_k),
+                         "cpu")
+        raw, h, w = stage_b8.make_inputs(2, 96, 96, 72, cpu)
+        want = opened(lambda: model.forward_test_batch(
+            normalize_uint8_images(raw, h, w), h, w))
+        _, rows, _ = stage_b8.profile(model, raw, h, w, 2)
+        root, own = stage_b8.ROOT, [(None, "normalize")]
+    assert want[0] == (None, root) and len(want) == len(set(want)) > 5
+    assert [(r["parent"], r["name"]) for r in rows] == own + want
+    assert {r["count"] for r in rows} == {2}
+    (top,) = [r for r in rows if r["key"] == root]
+    assert 0 < tc.children_sum(rows, root)["host_ms"] <= top["host_ms"]
+
+
+def test_a_new_span_reaches_the_profiler_unedited(monkeypatch):
+    real = densecap.nms
+
+    def nms(*a, **k):
+        with profiling.span("final_k1"):
+            return real(*a, **k)
+
+    monkeypatch.setattr(densecap, "nms", nms)
+    buf = StringIO()
+    with redirect_stdout(buf):
+        stage_b8.main(SIZE_FLAGS + ["--batch", "2", "--reps", "1",
+                                    "--iters", "1"])
+    lines = buf.getvalue().splitlines()
+    last = json.loads(lines[-1])
+    keys = list(last["stages_ms"])
+    assert keys.index("final_nms/final_k1") == keys.index(
+        "infer.forward/final_nms") + 1
+    assert any(line.startswith("    final_k1 ") for line in lines)
 
 
 def jaxpr_flops(jaxpr, trips):
