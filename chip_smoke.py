@@ -19,8 +19,9 @@ its result on its own line; any failure raises and exits non-zero:
   1. device: the card's name and power limit;
   2. build: the kernels of densecap_tpu_torch/ops/cuda (one nvcc per
      source, in parallel); the count of HGMMA (wgmma) instructions in the
-     SASS of K3's bf16 kernel, of K4 (G = 1 and 2 warpgroups) and of K5,
-     none of which may be 0, and the global reductions of each K2b instance;
+     SASS of K3's bf16 kernel, of K4 (G = 1 and 2 warpgroups), of K5 and
+     of K6 (one-pass, tiled aligned and tiled), none of which may be 0,
+     and the global reductions of each K2b instance;
   3. K1 (NMS) against its plain PyTorch version at the serving shapes and
      at extract_features' (1000 unsorted -> 100 at 0.4), picks required
      identical; per shape the C launch alone ("kernel_ms": on inputs the
@@ -58,6 +59,14 @@ its result on its own line; any failure raises and exits non-zero:
      in a CUDA graph; also with one token for every row), one call through
      the wrapper, the plain cell, the bound, and torch.lstm_cell in bf16
      as the library call;
+  5d. K6 (the ViTDet trunk's attention core) at the ViTDet cell's two
+     shapes, B = 8: the global block (64 x 64 grid, 12 heads of 64) and
+     the windowed one (200 windows of 14 x 14): within VIT_ATTN_TOL of the
+     logits written out in f32 (relative norm); the launch alone (20 in a
+     CUDA graph, its table and output made beforehand), one call through
+     the wrapper, the plain version, the bound, and the port's core
+     before K6 (q' / k' folded through F.scaled_dot_product_attention) as
+     the library call;
   6. K2b (RoI-align backward) at the training shape, on the square's
      and the bucket's map, against plain
      autograd, in both instances (the positions alone, as while the
@@ -489,6 +498,18 @@ def phase_build():
     print(f"[build] K5 kernel SASS: HGMMA (wgmma) instructions {hgmma}")
     if len(hgmma) != 1 or not hgmma[0]:
         raise AssertionError(f"K5 issues no wgmma: {hgmma}")
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "vit_attention_kernel" in name:
+            bn, tiled, aligned = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E",
+                                           name).groups()
+            kind = ("one-pass" if tiled == "0" else
+                    "tiled, aligned" if aligned == "1" else "tiled")
+            counts[f"{kind} BN={bn}"] = len(re.findall(r"\bHGMMA\.", fn))
+    print(f"[build] K6 kernel SASS: HGMMA (wgmma) instructions {counts}")
+    if len(counts) != 3 or not all(counts.values()):
+        raise AssertionError(f"K6 issues no wgmma: {counts}")
     # K2b's d feats scatter: the global reductions and atomics each
     # instance compiles to (float4 instance: one vector RED per column)
     reds = {}
@@ -945,6 +966,74 @@ def phase_lstm_cell(dev):
                             "gather; the port does not call it",
             "shapes": shapes}
 
+
+# tests/test_torch_kernels_gpu.py's VIT_ATTN_TOL
+VIT_ATTN_TOL = 5e-3
+
+
+def phase_vit_attention(dev):
+    """K6 at the ViTDet cell's two attention shapes (B = 8: the 4096-token
+    global grid and 200 windows of 14 x 14, 12 heads of 64) against the
+    logits written out in f32."""
+    from densecap_tpu_torch.ops import vit_attention as va
+
+    heads, d = VITDET.vit_num_heads, 64
+    G = VITDET.vit_img_size // VITDET.vit_patch_size
+    ws = VITDET.vit_window_size
+    windows = B * (-(-G // ws)) ** 2
+    worst, shapes = 0.0, []
+    for label, N, hw in (("global", B, (G, G)),
+                         ("windowed", windows, (ws, ws))):
+        hh, ww = hw
+        L = hh * ww
+        g = torch.Generator(device=dev).manual_seed(L)
+        qkv = (torch.randn((N, L, 3, heads, d), generator=g, device=dev)
+               * 0.5).bfloat16()
+        q, k, v = qkv.unbind(2)
+        rh, rw = ((torch.randn((2 * s - 1, d), generator=g, device=dev)
+                   * 0.5).bfloat16() for s in hw)
+        with torch.no_grad():
+            got = va.attention(q, k, v, rh, rw, hw)
+            ref = va.plain(q, k, v, rh, rw, hw)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref).norm() / ref.norm())
+            del ref
+            tab, out = va.table(rh, rw), torch.empty_like(got)
+            kern_ms = graph_ms(lambda: va.launch(q, k, v, tab, hw, out))
+            k_ms = cuda_ms(lambda: va.attention(q, k, v, rh, rw, hw))
+            p_ms = cuda_ms(lambda: va.plain(q, k, v, rh, rw, hw), runs=3)
+            lib_ms = cuda_ms(lambda: va.fold(q, k, v, rh, rw, hw))
+            del tab, out, got, qkv, q, k, v
+            torch.cuda.empty_cache()
+        # the two products and the relative terms (benchlib/vitdet.py's
+        # attn_core_flops); q, k, v and o in bf16 once each
+        ops = N * heads * (4 * L * L * d + 2 * L * (hh + ww) * d)
+        b_ms, b_by = bound_ms(4 * N * L * heads * d * 2, ops,
+                              H100_BF16_TFLOPS)
+        name = f"{label} N={N} {hh}x{ww} heads={heads} d={d} bf16"
+        print(f"[K6 vit_attention] {name}: rel err vs plain f32 {err:.3e} "
+              f"(limit {VIT_ATTN_TOL}); kernel alone {kern_ms:.4f} ms = "
+              f"{ops / kern_ms / 1e9:.1f} TFLOP/s, through the wrapper "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, the q'/k' fold through "
+              f"F.scaled_dot_product_attention {lib_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}) = {b_ms / kern_ms:.1%} of the kernel "
+              f"alone")
+        if not err < VIT_ATTN_TOL:
+            raise AssertionError(f"K6 disagrees with plain at {name}")
+        worst = max(worst, err)
+        shapes.append({"shape": name, "kernel_ms": kern_ms, "ms": k_ms,
+                       "plain_ms": p_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by})
+    main = shapes[0]
+    return {"max_rel_err": worst, "kernel_ms": main["kernel_ms"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_note": "the relative terms folded into q' and k' "
+                            "through F.scaled_dot_product_attention (cuDNN "
+                            "or flash), the port's core before K6; the port "
+                            "does not call it",
+            "shapes": shapes}
 
 def phase_trunk1(dev):
     """Trunk1's bf16 forward with K3 and with cuDNN, for the record."""
@@ -2548,11 +2637,12 @@ VITDET = DenseCapConfig(trunk="vitdet_b", vocab_size=10000, image_size=1024,
 def phase_vitdet(dev):
     """[vitdet] ViTDet-B as the trunk at full width (init_params, seed 0):
     B=8 1024 x 1024 canvases of 3:4 frames through the greedy
-    forward and extract_features (shapes, finite valid slots, K1 / K2
-    launches, time, peak memory), and one global block's attention core
-    (fused, bf16) against the plain f32 logits on the same operands for
+    forward and extract_features (shapes, finite valid slots, K1 / K2 /
+    K6 launches, time, peak memory), and one global block's attention
+    core (K6, bf16) against the plain f32 logits on the same operands for
     one image's first two heads."""
     from densecap_tpu_torch.models import vitdet
+    from densecap_tpu_torch.ops.vit_attention import rel_table
 
     model = to_torch(init_params(VITDET, seed=0), VITDET, dev)
     x, h, w = canvases(dev, B, 1024)
@@ -2577,8 +2667,8 @@ def phase_vitdet(dev):
         fused = vitdet.attention_core(q, k, v_, a.rel_h, a.rel_w, (64, 64),
                                       torch.bfloat16)[:, :2].float()
         qf, kf, vf = (t.transpose(1, 2)[:, :2].float() for t in (q, k, v_))
-        Rh = vitdet.rel_table(a.rel_h.float(), 64)
-        Rw = vitdet.rel_table(a.rel_w.float(), 64)
+        Rh = rel_table(a.rel_h.float(), 64)
+        Rw = rel_table(a.rel_w.float(), 64)
         r = qf.reshape(1, 2, 64, 64, 64)
         logits = ((qf * 0.125) @ kf.transpose(-1, -2)).reshape(
             1, 2, 64, 64, 64, 64)
@@ -2590,8 +2680,8 @@ def phase_vitdet(dev):
           f"events, median of 5), {B / ms * 1e3:.2f} images/s; peak "
           f"{peak:.4f} GiB; valid per image {v.sum(1).tolist()}; shapes and "
           f"finite valid slots ok={ok}; launches {counts}; global attention "
-          f"core vs plain f32 rel err {err:.3e}")
-    need_launches(counts, ("nms", "roi_align"), "vitdet")
+          f"core (K6) vs plain f32 rel err {err:.3e}")
+    need_launches(counts, ("nms", "roi_align", "vit_attention"), "vitdet")
     if not ok or not err < 1e-2:
         raise AssertionError("the ViTDet forward is malformed or its "
                              "attention is off the plain one")
@@ -4397,6 +4487,7 @@ def main(argv=None):
     k3 = phase_conv_pool(dev)
     k4 = phase_greedy_head(dev)
     k5 = phase_lstm_cell(dev)
+    k6 = phase_vit_attention(dev)
     k2b = phase_roi_bwd(dev, args.before)
     phase_reference(dev)
     t0 = time.perf_counter()
@@ -4539,6 +4630,14 @@ def main(argv=None):
          "launches": serve["lstm_cell"],
          "launches_by_path": {p: c["lstm_cell"] for p, c in paths.items()},
          **k5},
+        {"name": "vit_attention", "route": "cuda",
+         "source": "densecap_tpu_torch/ops/cuda/vit_attention.cu",
+         "replaces": "none: the JAX package has no ViTDet trunk; the port's "
+                     "q'/k' fold through F.scaled_dot_product_attention",
+         "launches": paths["vitdet"]["vit_attention"],
+         "launches_by_path": {p: c["vit_attention"]
+                              for p, c in paths.items()},
+         **k6},
     ]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

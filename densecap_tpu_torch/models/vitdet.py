@@ -25,17 +25,21 @@ arXiv:2203.16527; detectron2's `ViT` and `SimpleFeaturePyramid`).
 Precision as in the rest of the port: bf16 operands, f32 accumulation,
 LayerNorm, softmax statistics and the residual stream in f32.
 
-Attention never writes a (heads x N x N) tensor: the relative-position
-terms fold into the product of `F.scaled_dot_product_attention` at scale
-1, `q' = [q d^-0.5, rel_h(q), rel_w(q)]` against `k' = [k, onehot(kh),
-onehot(kw)]`, so a fused backend computes the exact logits. On the card
-the math backend, which would write them, is excluded.
+Attention never writes a (heads x N x N) tensor. On the card its core is
+kernel K6 (`ops/vit_attention.py`, `ops/cuda/vit_attention.cu`): one
+launch a block that reads q, k and v where the qkv product left them,
+computes each query's relative terms from q and the tables, adds them to
+each tile of logits in registers and writes the heads' output
+token-major, so merging the heads is a view. On the CPU the relative
+terms fold into one softmax product at scale 1, `q' = [q d^-0.5,
+rel_h(q), rel_w(q)]` against `k' = [k, onehot(kh), onehot(kw)]`.
 
 Spans (`utils.profiling`), under `trunk`: `vit.attn.window` and
 `vit.attn.global` (the attention core, from q, k, v to the heads' output,
-with the relative-position terms), `vit.mlp` (LN2 and the MLP) and
-`vit.neck`; counters `vit.tokens` (query tokens through attention a call,
-window padding included) and `vit.pad_tokens` (the padding's share).
+with the relative-position terms; counter `vit.attn.k6`, one a core that
+ran as K6), `vit.mlp` (LN2 and the MLP) and `vit.neck`; counters
+`vit.tokens` (query tokens through attention a call, window padding
+included) and `vit.pad_tokens` (the padding's share).
 """
 
 from __future__ import annotations
@@ -45,13 +49,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import VGG_MEAN_BGR
+from ..ops import vit_attention
 from ..ops.linear import dot_f32, frozen
 from ..utils.profiling import count, span
 
 VIT_MEAN_RGB = (123.675, 116.28, 103.53)
 VIT_STD_RGB = (58.395, 57.12, 57.375)
 LN_EPS = 1e-6
-HEAD_ALIGN = 8  # the fused backends take head sizes in multiples of 8
 VIT_TRAINING = ("training through a ViTDet trunk is not supported: the "
                 "port runs it for inference only")
 
@@ -92,70 +96,25 @@ def linear_f32(x, w, b, cd):
     return dot_f32(x, w, cd) + b
 
 
-def rel_table(table, size):
-    """(2 size - 1, d) table -> (size, size, d): row qh, column kh holds
-    table[qh - kh + size - 1] (detectron2 `get_rel_pos` at equal sizes)."""
-    idx = torch.arange(size, device=table.device)
-    return table[idx[:, None] - idx[None, :] + size - 1]
-
-
-def _sdpa(q, k, v):
-    """Softmax attention at scale 1 by a fused backend on the card (never
-    the math one, which writes the logits); in f32 on the CPU, on the
-    operands as given."""
-    if not q.is_cuda:
-        return F.scaled_dot_product_attention(q.float(), k.float(),
-                                              v.float(), scale=1.0)
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                      SDPBackend.EFFICIENT_ATTENTION,
-                      SDPBackend.CUDNN_ATTENTION]):
-        return F.scaled_dot_product_attention(q, k, v, scale=1.0)
-
-
-def attention_core(q, k, v, rel_h_table, rel_w_table, hw, cd):
+def attention_core(q, k, v, rel_h_table, rel_w_table, hw, cd, table=None):
     """Softmax attention with decomposed relative positions.
 
     q, k, v: (N, L, heads, d) in the compute dtype, token-major (the qkv
     product's columns as they are), over an (hh, ww) grid (L = hh ww,
     row-major); the tables: (2 hh - 1, d), (2 ww - 1, d). -> (N, heads,
-    L, d) in the compute dtype.
+    L, d) in the compute dtype, a view of the token-major result.
 
-    q' and k' are written once each, in place: q d^-0.5 and k, then the
-    relative terms (q against every row of both tables in one product,
-    each query's own offsets gathered from it) and the one-hot key
-    positions, then zeros to a multiple of HEAD_ALIGN."""
-    hh, ww = hw
-    N, L, nh, d = q.shape
-    S = hh + ww
-    width = d + S + (-(d + S) % HEAD_ALIGN)
-    qp, kp = q.new_empty(N, L, nh, width), k.new_empty(N, L, nh, width)
-    torch.mul(q, d ** -0.5, out=qp[..., :d])
-    kp[..., :d] = k
-    qp[..., d + S:] = 0
-    kp[..., d + S:] = 0
-    tables = torch.cat([rel_h_table, rel_w_table]).to(cd)
+    On the card kernel K6 (`ops/vit_attention.py`), counted as
+    `vit.attn.k6` on the open span: it reads q, k and v in place, adds
+    each query's relative terms to each tile of logits inside the kernel
+    and writes o token-major, so the caller's merge of the heads is a
+    view; `table` is K6's stack of the two tables where the caller keeps
+    it. On the CPU the relative terms fold into one softmax product
+    (`vit_attention.fold`)."""
+    o = vit_attention.attention(q, k, v, rel_h_table, rel_w_table, hw, table)
     if q.is_cuda:
-        full = q.reshape(-1, d) @ tables.t()
-    else:  # widened operands, f32 sums, as dot_f32
-        full = (q.reshape(-1, d).float() @ tables.float().t()).to(cd)
-    full = full.view(N, hh, ww, nh, -1)
-    dev = q.device
-    # rel_h[.., qh, qw, head, kh] = q . Rh[qh - kh + hh - 1]; rel_w alike
-    ih, iw = torch.arange(hh, device=dev), torch.arange(ww, device=dev)
-    idx_h = (ih[:, None] - ih[None, :] + hh - 1)[None, :, None, None]
-    off = 2 * hh - 1  # the width table's first row in `tables`
-    idx_w = (iw[:, None] - iw[None, :] + ww - 1 + off)[None, None, :, None]
-    q5, k5 = qp.view(N, hh, ww, nh, width), kp.view(N, hh, ww, nh, width)
-    torch.gather(full, 4, idx_h.expand(N, hh, ww, nh, hh),
-                 out=q5[..., d:d + hh])
-    torch.gather(full, 4, idx_w.expand(N, hh, ww, nh, ww),
-                 out=q5[..., d + hh:d + S])
-    k5[..., d:d + hh] = torch.eye(hh, dtype=cd, device=dev)[:, None, None]
-    k5[..., d + hh:d + S] = torch.eye(ww, dtype=cd, device=dev)[:, None]
-    o = _sdpa(qp.transpose(1, 2), kp.transpose(1, 2), v.transpose(1, 2))
-    return o.to(cd)
+        count("vit.attn.k6")
+    return o.transpose(1, 2).to(cd)
 
 
 def layer_norm(x, p):
@@ -171,6 +130,17 @@ class Attention(nn.Module):
         self.proj_w, self.proj_b = frozen(proj[0]), frozen(proj[1])
         self.rel_h, self.rel_w = frozen(rel_h), frozen(rel_w)
         self.heads, self.cd = heads, cd
+        self._table = self._table_key = None
+
+    def table(self):
+        """K6's stack of the two tables, made again only after either
+        changes (its version or storage)."""
+        key = tuple((t._version, t.data_ptr()) for t in (self.rel_h,
+                                                         self.rel_w))
+        if key != self._table_key:
+            self._table = vit_attention.table(self.rel_h, self.rel_w)
+            self._table_key = key
+        return self._table
 
     def core(self, x, name):
         """x: (N, hh, ww, C) in the compute dtype -> the heads' output
@@ -181,7 +151,7 @@ class Attention(nn.Module):
         q, k, v = qkv.view(N, hh * ww, 3, nh, C // nh).unbind(2)
         with span(name):
             o = attention_core(q, k, v, self.rel_h, self.rel_w, (hh, ww),
-                               self.cd)
+                               self.cd, self.table() if q.is_cuda else None)
         return o.transpose(1, 2).reshape(N, hh, ww, C)
 
     def project(self, o):

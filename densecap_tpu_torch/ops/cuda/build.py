@@ -23,8 +23,9 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "nms.cu", _HERE / "roi_align.cu", _HERE / "conv_pool.cu",
-           _HERE / "greedy_head.cu", _HERE / "lstm_cell.cu")
-HEADERS = (_HERE / "hopper.cuh",)  # included by the three Hopper kernels' sources
+           _HERE / "greedy_head.cu", _HERE / "lstm_cell.cu",
+           _HERE / "vit_attention.cu")
+HEADERS = (_HERE / "hopper.cuh",)  # included by the four Hopper kernels' sources
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
 
 # -fmad=false: no FMA contraction, so the NMS IoU rounds exactly as the
@@ -43,7 +44,7 @@ build_seconds = None
 # feature gradient (roi_align_bwd_feats).
 launches = {"nms": 0, "roi_align": 0, "roi_align_bwd": 0,
             "roi_align_bwd_feats": 0, "conv_pool": 0, "greedy_head": 0,
-            "lstm_cell": 0}
+            "lstm_cell": 0, "vit_attention": 0}
 
 
 def reset_launches():
@@ -134,6 +135,11 @@ def load():
         lib.dc_lstm_cell.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci,
                                      ci, ci, vp]
         lib.dc_lstm_cell.restype = ci
+        ll = ctypes.c_longlong
+        lib.dc_vit_attention.argtypes = [vp, vp, vp, ll, ll, ll, vp, ci, vp,
+                                         ci, ci, ci, ci, ci, ctypes.c_float,
+                                         vp]
+        lib.dc_vit_attention.restype = ci
         _lib = lib
         return lib
 

@@ -1,5 +1,5 @@
 // What the Hopper kernels share (K3 conv_pool.cu, K4 greedy_head.cu, K5
-// lstm_cell.cu):
+// lstm_cell.cu, K6 vit_attention.cu):
 // mbarriers, wgmma's shared-memory descriptor, fences and waits, and the
 // driver's TMA map encoder. Its definitions sit in an anonymous
 // namespace: each source that includes it keeps its own copy, and the

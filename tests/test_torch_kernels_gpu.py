@@ -17,7 +17,10 @@ a whole decode, the greedy decode's LSTM cell (K5) within CELL_TOL of the
 plain cell at P = 1..8000 and at widths off its tiles, and through a
 whole decode (bf16 and int8 heads) no further from the plain cell than
 the plain cell is from itself with its gates summed in one product, and
-each wrapper counting exactly its own launches; the int8 product of
+each wrapper counting exactly its own launches; the ViTDet attention
+core (K6) within VIT_ATTN_TOL of the logits written out in f32 at the
+windowed, global, unaligned and ragged grids, its output a view, and the
+inputs it does not take refused; the int8 product of
 `ops/quant.py` on the card identical to the CPU's; each kernel launched
 on its tensors' device from a thread whose current device is another
 (skipped with fewer than two cards); two model replicas on one card
@@ -1047,7 +1050,7 @@ def _plain_block(blk, x):
     terms, softmax, `@ v`, projection, LN2 and the MLP."""
     import torch.nn.functional as F
 
-    from densecap_tpu_torch.models.vitdet import rel_table
+    from densecap_tpu_torch.ops.vit_attention import rel_table
 
     a = blk.attn
     f = {k: v.float() for k, v in (("qkv_w", a.qkv_w), ("proj_w", a.proj_w),
@@ -1108,3 +1111,84 @@ def test_vitdet_block_matches_plain(dev, window):
         ref = _plain_block(blk, x)
     err = float((got - ref).norm() / (ref - x).norm())
     assert err < 2e-2, err
+
+
+def _vit_inputs(dev, N, hh, ww, heads=12, seed=0):
+    """q, k, v as the qkv product leaves them ((N, L, 3, heads, 64) bf16,
+    unbound: token-major views with the heads inside) and the two tables,
+    all N(0, 0.5^2): logits of a few units, as in a trained block."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (torch.randn((N, hh * ww, 3, heads, 64), generator=g, device=dev)
+           * 0.5).bfloat16()
+    q, k, v = qkv.unbind(2)
+    rh, rw = ((torch.randn((2 * s - 1, 64), generator=g, device=dev) * 0.5)
+              .bfloat16() for s in (hh, ww))
+    return q, k, v, rh, rw
+
+
+# K6 against the logits written out in f32 (relative norm of the
+# difference): o is rounded to bf16 once (2^-9 of each element) and P
+# rounded to bf16 for the P v product (2^-9 of each weight, averaging over
+# the keys), each ~1.5e-3 of the output's norm; the old cuDNN fold sits
+# at the same level.
+VIT_ATTN_TOL = 5e-3
+
+
+@pytest.mark.parametrize("N, hh, ww", [(4, 14, 14), (1, 64, 64), (1, 40, 48),
+                                       (1, 23, 24)],
+                         ids=["windowed", "global", "unaligned", "ragged"])
+def test_vit_attention_matches_plain(dev, N, hh, ww):
+    """K6 at the windowed shape (one-pass: 14 x 14, 12 heads), the global
+    one (tiled: 64 x 64, 12 heads, B = 1, a key tile two grid rows), an
+    unaligned grid (40 x 48: tiled, each key's row and column by general
+    index arithmetic) and a ragged one (23 x 24: its last key tile part
+    past L), against `vit_attention.plain`, within VIT_ATTN_TOL."""
+    from densecap_tpu_torch.ops import vit_attention as va
+
+    q, k, v, rh, rw = _vit_inputs(dev, N, hh, ww)
+    got = va.attention(q, k, v, rh, rw, (hh, ww))
+    ref = va.plain(q, k, v, rh, rw, (hh, ww))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = float((got.float() - ref).norm() / ref.norm())
+    assert err < VIT_ATTN_TOL, err
+
+
+def test_vit_attention_core_is_a_view_and_counts_its_launch(dev):
+    """`attention_core` returns K6's token-major output as the (N, heads,
+    L, d) view it promises, so the block's merge of the heads copies
+    nothing; the wrapper counts one launch and no other kernel's."""
+    from densecap_tpu_torch.models.vitdet import attention_core
+
+    q, k, v, rh, rw = _vit_inputs(dev, 2, 14, 14)
+    build.reset_launches()
+    o = attention_core(q, k, v, rh, rw, (14, 14), torch.bfloat16)
+    assert build.launches == dict(NONE, vit_attention=1)
+    assert o.shape == (2, 12, 196, 64)
+    merged = o.transpose(1, 2).reshape(2, 14, 14, 768)
+    assert merged.data_ptr() == o.data_ptr()
+    assert merged._base is not None
+
+
+@pytest.mark.parametrize("case", ["float32", "head32", "grid", "strides"])
+def test_vit_attention_refuses_what_k6_does_not_take(dev, case):
+    """f32 operands, a head size other than 64, a grid whose tables or
+    relative terms pass K6's shared memory, and q, k, v with different
+    strides raise on the card; nothing falls back."""
+    from densecap_tpu_torch.ops import vit_attention as va
+
+    hw = (14, 14)
+    q, k, v, rh, rw = _vit_inputs(dev, 1, *hw)
+    if case == "float32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif case == "head32":
+        q, k, v = q[..., :32], k[..., :32], v[..., :32]
+        rh, rw = rh[:, :32], rw[:, :32]
+    elif case == "grid":
+        hw = (100, 100)
+        q, k, v, rh, rw = _vit_inputs(dev, 1, *hw, heads=1)
+    else:
+        k = k.contiguous()
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        va.attention(q, k, v, rh, rw, hw)
+    assert build.launches == NONE

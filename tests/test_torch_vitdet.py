@@ -339,3 +339,57 @@ def test_vgg_config_json_is_unchanged():
     assert DenseCapConfig.from_json(vit.to_json()) == vit
     with pytest.raises(ValueError, match="unknown trunk"):
         DenseCapConfig(trunk="vit_l")
+
+
+@pytest.mark.parametrize("hw", [(3, 5), (4, 4), (1, 7)])
+def test_attention_fold_matches_the_logits_written_out(hw):
+    """The CPU path of the attention core (`vit_attention.fold`: the
+    relative terms folded into one softmax product) against `plain`, the
+    logits written out, which the card's kernel K6 is held to: f32
+    operands, so they agree to f32 rounding."""
+    from densecap_tpu_torch.ops import vit_attention as va
+
+    hh, ww = hw
+    g = torch.Generator().manual_seed(hh * 10 + ww)
+    q, k, v = (torch.randn((2, hh * ww, 3, 16), generator=g)
+               for _ in range(3))
+    rh, rw = (torch.randn((2 * s - 1, 16), generator=g) for s in hw)
+    got = va.attention(q, k, v, rh, rw, hw)
+    ref = va.plain(q, k, v, rh, rw, hw)
+    assert got.shape == q.shape
+    assert float((got - ref).abs().max()) < F32_TOL
+
+
+def test_k6_table_stacks_both_tables_in_bf16():
+    """K6's table: Rh then Rw in bf16, zero rows to a multiple of 64."""
+    from densecap_tpu_torch.ops import vit_attention as va
+
+    rh, rw = torch.randn(27, 64), torch.randn(27, 64)
+    t = va.table(rh, rw)
+    assert t.shape == (64, 64) and t.dtype == torch.bfloat16
+    assert torch.equal(t[:27], rh.bfloat16())
+    assert torch.equal(t[27:54], rw.bfloat16())
+    assert not t[54:].any()
+
+
+def test_attention_keeps_k6_table_until_its_tables_change():
+    """A block's `Attention.table` (K6's stack of its two tables) is made
+    once and made again after an in-place change of either table, as the
+    benchmark's control makes when it zeroes them."""
+    from densecap_tpu_torch.models.vitdet import Attention
+    from densecap_tpu_torch.ops import vit_attention as va
+
+    g = torch.Generator().manual_seed(7)
+    C = 128
+    attn = Attention((torch.randn(C, 3 * C, generator=g), torch.zeros(3 * C)),
+                     (torch.randn(C, C, generator=g), torch.zeros(C)),
+                     torch.randn(13, 64, generator=g),
+                     torch.randn(13, 64, generator=g), 2, torch.bfloat16)
+    first = attn.table()
+    assert attn.table() is first
+    assert torch.equal(first, va.table(attn.rel_h, attn.rel_w))
+    with torch.no_grad():
+        attn.rel_h.zero_()
+    again = attn.table()
+    assert again is not first and not again[:13].any()
+    assert torch.equal(again[13:26], attn.rel_w.bfloat16())
