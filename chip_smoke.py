@@ -30,8 +30,10 @@ its result on its own line; any failure raises and exits non-zero:
      plain version, the bound from this run's IoU tests and bytes, and
      the tiles walked in the longest image;
   4. K2 (RoI align) against its plain version at the inference shape
-     (8 x 1000 boxes) and the training shape (8 x 384), and at the
-     training shape on the 544x720 bucket's 34x45 map, max abs error
+     (8 x 1000 boxes) and the training shape (8 x 384), at the
+     training shape on the 544x720 bucket's 34x45 map, and at the GRiT
+     cell's prefix pool (8 x 100 boxes at 14 x 14 on the ViTDet map
+     (8, 64, 64, 256), 1024x768 frames on the patch grid), max abs error
      <= 1e-5; the same times and bound as K1, and F.grid_sample on the
      same positions (within 1e-4 of plain) as the library call;
   5. K3 (fused conv+ReLU+mask+pool) at trunk1's conv1_2 and conv2_2
@@ -46,7 +48,8 @@ its result on its own line; any failure raises and exits non-zero:
      cuDNN, printed only;
   5b. K4 (the greedy decode's vocab head) at P = 8000 (the B = 8
      forward) and P = 50 (the webcam server), V + 1 = 10 001, K = 512,
-     bf16 W, a quarter of the rows already done: tokens identical to the
+     and at the GRiT text decoder's head, P = 800, K = 768, V + 1 =
+     30 522; bf16 W, a quarter of the rows already done: tokens identical to the
      plain head wherever its top-2 gap exceeds 1e-3, logprobs within
      1e-4, done rows END and 0; the launch alone (20 in a CUDA graph),
      one call through the wrapper, the plain head, the bound, and the
@@ -133,7 +136,16 @@ its result on its own line; any failure raises and exits non-zero:
      of its logprobs within 1e-3; a tiny f32 model card vs CPU at beams
      1, 3 and 5, tokens identical;
  11. extract_features at B = 8 (100 boxes at 0.4): ms/call, shapes,
-     finite valid slots;
+     finite valid slots; [vitdet] ViTDet-B as the trunk at full width
+     (its greedy forward and extract_features, K6 against plain f32);
+     [grit] GRiT's text decoder on that trunk at full width (B = 8, 100
+     boxes an image): forward_test_batch's shapes, finite valid slots,
+     tokens in [1, V+1], K1, K2 (twice: the 7 x 7 and the 14 x 14 pool),
+     K6 and K4 (one a decode step, at most seq_length) launched, peak
+     memory under GRIT_PEAK_GIB; then one decode step's attention alone
+     at the cell's shape (SDPA over the cache's first 196 + 8 columns,
+     800 rows, 12 heads of 64, bf16, 20 calls back to back) against plain
+     f32 and its byte bound;
  12. [int8] W8A8 fc6 / fc7 at 8000 rows (B=8 x 1000 RoIs): torch._int_mm
      equal to a float64 product of the same codes; its second operand
      column-major (the layout QuantLinear stores) and row-major; the
@@ -631,30 +643,44 @@ def roi_library(feats, yf, xf):
 
 def roi_bytes(feats, rois, out_hw=(7, 7)):
     """K2's bytes: the feature map and the sample positions, box index and
-    extents read once, the (rois, 7, 7, C) f32 output written once."""
+    extents read once, the (rois, out_h, out_w, C) f32 output written
+    once."""
     C = feats.shape[-1]
     return (feats.numel() * 4 + rois * (sum(out_hw) + 3) * 4
             + rois * out_hw[0] * out_hw[1] * C * 4)
 
 
+def vit_extent(h, w):
+    """The ViTDet map's extent of each frame: the 16 px patches wholly
+    inside it (`ViTDet.feat_extent`)."""
+    return (torch.div(h, 16, rounding_mode="floor").to(torch.int32),
+            torch.div(w, 16, rounding_mode="floor").to(torch.int32))
+
+
 def phase_roi(dev):
     """K2 at the inference shape (8 x 1000 boxes) and the training shape
-    (8 x 384) on (8, 45, 45, 512) f32, and at the training shape on the
-    544x720 bucket's (8, 34, 45, 512)."""
+    (8 x 384) on (8, 45, 45, 512) f32, at the training shape on the
+    544x720 bucket's (8, 34, 45, 512), and at the GRiT cell's prefix pool:
+    8 x 100 boxes at 14 x 14 on the ViTDet map (8, 64, 64, 256) of
+    1024x768 frames."""
     rng = np.random.default_rng(2)
     shapes, err = [], 0.0
-    for k, hw, sizes in ((1000, (45, 45), (IMG_H, IMG_W)),
-                         (384, (45, 45), (IMG_H, IMG_W)),
-                         (384, (34, 45), (BUCKET_IMG_H, BUCKET_IMG_W))):
+    for k, hw, C, g, sizes, extent, size in (
+            (1000, (45, 45), 512, 7, (IMG_H, IMG_W), feat_extent, 720.0),
+            (384, (45, 45), 512, 7, (IMG_H, IMG_W), feat_extent, 720.0),
+            (384, (34, 45), 512, 7, (BUCKET_IMG_H, BUCKET_IMG_W),
+             feat_extent, 720.0),
+            (100, (64, 64), 256, 14, ((768,) * B, (1024,) * B), vit_extent,
+             1024.0)):
         feats = torch.from_numpy(rng.standard_normal(
-            (B, *hw, 512), dtype=np.float32)).to(dev)
+            (B, *hw, C), dtype=np.float32)).to(dev)
         img_h = torch.tensor(sizes[0], dtype=torch.float32, device=dev)
         img_w = torch.tensor(sizes[1], dtype=torch.float32, device=dev)
-        fh, fw = feat_extent(img_h, img_w)
-        bx = random_boxes(rng, k)
+        fh, fw = extent(img_h, img_w)
+        bx = random_boxes(rng, k, size)
         bx[..., 2:] *= 1.5  # some boxes reach past the image edge
         boxes = torch.from_numpy(bx).to(dev)
-        args = (feats, boxes, img_h, img_w, fh, fw, 7, 7)
+        args = (feats, boxes, img_h, img_w, fh, fw, g, g)
         got = roi_mod.roi_align_cuda(*args)
         ref = roi_mod.roi_align_plain(*args)
         e = float((got - ref).abs().max())
@@ -664,17 +690,19 @@ def phase_roi(dev):
         lib, as_k2, inp, grid = roi_library(feats, prep[0], prep[1])
         lib_e = float((as_k2(lib(inp, grid)) - ref).abs().max())
         del ref
-        out = torch.empty((B * k, 7, 7, 512), device=dev)
+        out = torch.empty((B * k, g, g, C), device=dev)
         kern_ms = graph_ms(lambda: roi_mod.launch_fwd(feats, *prep, out))
         del out
         k_ms = cuda_ms(lambda: roi_mod.roi_align_cuda(*args))
         p_ms = cuda_ms(lambda: roi_mod.roi_align_plain(*args))
         l_ms = cuda_ms(lambda: lib(inp, grid))
         del grid
-        nbytes = roi_bytes(feats, B * k)
+        nbytes = roi_bytes(feats, B * k, (g, g))
         # 3 lerps of 4 operations per output element
-        b_ms, b_by = bound_ms(nbytes, B * k * 49 * 512 * 12, H100_F32_TFLOPS)
-        label = f"{B}x{k} boxes, ({B},{hw[0]},{hw[1]},512) f32"
+        b_ms, b_by = bound_ms(nbytes, B * k * g * g * C * 12, H100_F32_TFLOPS)
+        label = f"{B}x{k} boxes, ({B},{hw[0]},{hw[1]},{C}) f32"
+        if g != 7:
+            label += f", {g}x{g}"
         print(f"[K2 roi_align] {label}: max_abs_err "
               f"{e:.3e} (tol {ROI_TOL}); kernel alone {kern_ms:.4f} ms "
               f"({nbytes / kern_ms / 1e9:.2f} TB/s), through the wrapper "
@@ -697,7 +725,8 @@ def phase_roi(dev):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "library_note": "F.grid_sample, align_corners=True, on K2's "
-                            "clamped positions as one (B, K*7, 7, 2) grid; "
+                            "clamped positions as one (B, K*g, g, 2) grid "
+                            "(g = 7, or 14 at the GRiT prefix's shape); "
                             "NCHW output",
             "shapes": shapes}
 
@@ -794,14 +823,19 @@ def greedy_head_library(h, w, b):
 
 
 def phase_greedy_head(dev):
-    """K4 at the decode's two main shapes against the plain head."""
+    """K4 at the LSTM decode's two main shapes and at the GRiT text
+    decoder's head (P = 800, K = 768, V + 1 = 30 522) against the plain
+    head."""
     from densecap_tpu_torch.ops.linear import dot_f32
     from densecap_tpu_torch.ops import greedy_head as gh
 
-    K, N, T = FLAGSHIP.rnn_size, FLAGSHIP.vocab_size + 1, FLAGSHIP.seq_length
+    T = FLAGSHIP.seq_length
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst, shapes = 0.0, []
-    for P in (B * FLAGSHIP.test_max_proposals, 50):
+    lstm = (FLAGSHIP.rnn_size, FLAGSHIP.vocab_size + 1)
+    for P, K, N in ((B * FLAGSHIP.test_max_proposals, *lstm), (50, *lstm),
+                    (B * GRIT.test_final_max_boxes, GRIT.textdec_dim,
+                     GRIT.vocab_size + 1)):
         g = torch.Generator(device=dev).manual_seed(P)
         h = torch.rand((P, K), generator=g, device=dev) * 2 - 1
         w = ((torch.rand((K, N), generator=g, device=dev) * 2 - 1)
@@ -856,7 +890,7 @@ def phase_greedy_head(dev):
               f"{b_ms:.4f} ms ({b_by}) = {b_ms / kern_ms:.1%} of the kernel "
               f"alone")
         if not (same and done_ok and err <= 1e-4):
-            raise AssertionError(f"K4 disagrees with plain at P = {P}")
+            raise AssertionError(f"K4 disagrees with plain at {label}")
         worst = max(worst, err)
         shapes.append({"shape": label, "kernel_ms": kern_ms, "ms": k_ms,
                        "plain_ms": p_ms, "library_ms": lib_ms,
@@ -2632,6 +2666,12 @@ def phase_extract(dev, model):
 
 VITDET = DenseCapConfig(trunk="vitdet_b", vocab_size=10000, image_size=1024,
                         test_max_proposals=1000, test_pre_nms_topk=6000)
+# the GRiT cell's model: GRiT's text decoder (BERT's 30 522 classes) in
+# the LSTM's place, 100 final boxes an image
+GRIT = VITDET.replace(lm="grit_textdec", vocab_size=30521,
+                      test_final_max_boxes=100)
+# [grit]'s peak: the cell reads ~8 GiB (the cache ~2.9 GiB of it)
+GRIT_PEAK_GIB = 16.0
 
 
 def phase_vitdet(dev):
@@ -2686,6 +2726,78 @@ def phase_vitdet(dev):
         raise AssertionError("the ViTDet forward is malformed or its "
                              "attention is off the plain one")
     del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_grit(dev):
+    """[grit] GRiT's text decoder on the ViTDet-B trunk at full width
+    (init_params, seed 0): B=8 1024 x 1024 canvases of 3:4 frames through
+    the greedy forward (shapes, finite valid slots, tokens in range, K1 /
+    K2 / K6 / K4 launches, time, peak memory), and one decode step's
+    attention alone at the cell's shape against plain f32 and its byte
+    bound."""
+    T, M, V = GRIT.seq_length, GRIT.test_final_max_boxes, GRIT.vocab_size
+    model = to_torch(init_params(GRIT, seed=0), GRIT, dev)
+    x, h, w = canvases(dev, B, 1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = read_launches(lambda: model.forward_test_batch(x, h, w))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = cuda_ms(lambda: model.forward_test_batch(x, h, w), runs=3,
+                 warmup=1)
+    v = out.valid
+    tok = out.captions[v]
+    ok = (out.boxes.shape == (B, M, 4) and out.captions.shape == (B, M, T)
+          and out.caption_logprobs.shape == (B, M, T)
+          and bool(v.any(1).all())
+          and bool(torch.isfinite(out.boxes[v]).all())
+          and bool(torch.isfinite(out.scores[v]).all())
+          and bool(torch.isfinite(out.caption_logprobs[v]).all())
+          and bool(((tok >= 1) & (tok <= V + 1)).all()))
+    steps = counts["greedy_head"]
+    del model, out
+    torch.cuda.empty_cache()
+    # one step's attention at text position t = 7: 800 rows' q against
+    # the first 196 + 8 columns of a (rows, heads, 196 + T, 64) cache
+    # layer, as `KVCache.upto` hands it over (views, not copies)
+    P, heads, d = GRIT.textdec_obj_pool ** 2, GRIT.textdec_heads, 64
+    R, n = B * M, P + 8
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((R, heads, 1, d), generator=g, device=dev).bfloat16()
+    k, v_ = (torch.randn((R, heads, P + T, d), generator=g, device=dev)
+             .bfloat16() for _ in range(2))
+    keys, values = k[:, :, :n], v_[:, :, :n]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        got = sdpa(q, keys, values).float()
+        qf, kf, vf = q.float(), keys.float(), values.float()
+        plain = torch.softmax(qf @ kf.transpose(-1, -2) / d ** 0.5, -1) @ vf
+        err = float((got - plain).norm() / plain.norm())
+        reps = 20
+        attn_ms = cuda_ms(lambda: [sdpa(q, keys, values)
+                                   for _ in range(reps)]) / reps
+    # the columns' keys and values, q read and the output written, bf16
+    nbytes = R * heads * d * 2 * (2 * n + 2)
+    b_ms, b_by = bound_ms(nbytes, 4 * R * heads * n * d, H100_BF16_TFLOPS)
+    print(f"[grit] B={B}, 1024 px, {M} boxes an image: {ms:.3f} ms/call "
+          f"(CUDA events, median of 3), {B / ms * 1e3:.2f} images/s; peak "
+          f"{peak:.4f} GiB (limit {GRIT_PEAK_GIB}); valid per image "
+          f"{v.sum(1).tolist()}; shapes, finite valid slots and tokens "
+          f"ok={ok}; launches {counts}; a step's attention alone "
+          f"({R} rows x {heads} heads, {n} keys): {attn_ms:.4f} ms (20 "
+          f"back to back), bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.0f} MB) = {b_ms / attn_ms:.1%}; rel err vs "
+          f"plain f32 {err:.3e}")
+    need_launches(counts, ("nms", "roi_align", "vit_attention",
+                           "greedy_head"), "grit")
+    if not (ok and counts["roi_align"] == 2 and 1 <= steps <= T
+            and counts["lstm_cell"] == 0 and peak < GRIT_PEAK_GIB
+            and err < 1e-2):
+        raise AssertionError("the GRiT forward is malformed, launched "
+                             "the wrong kernels, outgrew its memory or its "
+                             "steps' attention is off the plain one")
+    del q, k, v_, keys, values
     torch.cuda.empty_cache()
     return counts
 
@@ -4519,7 +4631,7 @@ def main(argv=None):
     paths = {"serve": serve, "eval": phase_eval(dev, model, vocab),
              "beam": phase_beam(dev, model),
              "extract_features": phase_extract(dev, model),
-             "vitdet": phase_vitdet(dev)}
+             "vitdet": phase_vitdet(dev), "grit": phase_grit(dev)}
     (paths["eval data parallel"], paths["engine data parallel"],
      data_parallel) = phase_data_parallel(dev, model, params, vocab)
     del model

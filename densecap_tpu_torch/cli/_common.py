@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..models.textdec import is_textdec_tree
+
 # What the JAX package's CLIs offer and these do not (yet).
 NOT_PORTED = (
     "Flags of the JAX CLIs left out of this one: --roi_align / "
@@ -44,6 +46,10 @@ def maybe_quantize(params, mode: str):
     """
     if mode in ("", "none"):
         return params
+    if is_textdec_tree(params["lm"]):
+        raise SystemExit(f"--quantize {mode}: not supported with GRiT's "
+                         "text decoder (its checkpoint runs in the compute "
+                         "dtype)")
     if "vit" in params:
         raise SystemExit(f"--quantize {mode}: not supported with a ViTDet "
                          "trunk (its checkpoint runs in the compute dtype)")

@@ -5,15 +5,17 @@ port's inference and training paths read, under the same names and
 defaults. `compute_dtype` is a torch dtype. `from_json` reads what the JAX
 `to_json` writes (the dtype as a name such as "bfloat16"); fields that
 only TPU-specific options use are dropped. What `to_json` writes for a
-VGG-16 config, the JAX `from_json` reads; the `trunk` and `vit_*` fields
-(a ViTDet trunk, which the JAX package does not have) are the port's own.
+config the JAX package can run (VGG-16, the LSTM, every final box kept),
+the JAX `from_json` reads; the `trunk` and `vit_*` fields (a ViTDet
+trunk), `lm` and `textdec_*` (GRiT's text decoder) and
+`test_final_max_boxes` are the port's own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +36,13 @@ VGG_MEAN_BGR = (103.939, 116.779, 123.68)
 # The trunks: VGG-16 (the reference's) and ViTDet's plain ViT with its
 # simple feature pyramid's stride-16 level (`models/vitdet.py`).
 TRUNKS = ("vgg16", "vitdet_b")
+
+# The language models: DenseCap's LSTM (`models/lstm.py`) and GRiT's text
+# decoder (`models/textdec.py`).
+LMS = ("lstm", "grit_textdec")
+
+# Fields the JAX package's config does not have.
+PORT_ONLY = ("trunk", "vit_", "lm", "textdec_", "test_final_max_boxes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +88,8 @@ class DenseCapConfig:
     test_rpn_nms_thresh: float = 0.7
     test_final_nms_thresh: float = 0.3
     test_max_proposals: int = 1000
+    # rows an image the final NMS keeps (None: test_max_proposals)
+    test_final_max_boxes: Optional[int] = None
     clip_final_boxes: bool = False
     # NMS runs over the top-k scored proposals only (-1 = all anchors)
     test_pre_nms_topk: int = 6000
@@ -110,6 +121,18 @@ class DenseCapConfig:
     vit_pretrain_grid: int = 14
     vit_out_channels: int = 256
 
+    # the language model (LMS); the textdec_* fields shape GRiT's text
+    # decoder (Wu et al., arXiv:2212.00280) and default to its BERT-base
+    # widths: layers, width, heads, FFN width, rows of the position
+    # table, and the side of the RoI grid pooled for its object tokens
+    lm: str = "lstm"
+    textdec_layers: int = 6
+    textdec_dim: int = 768
+    textdec_heads: int = 12
+    textdec_ffn: int = 3072
+    textdec_positions: int = 40
+    textdec_obj_pool: int = 14
+
     @property
     def num_anchors(self) -> int:
         return len(self.anchors)
@@ -122,6 +145,9 @@ class DenseCapConfig:
         if self.trunk not in TRUNKS:
             raise ValueError(f"unknown trunk {self.trunk!r} (expected one "
                              f"of {', '.join(TRUNKS)})")
+        if self.lm not in LMS:
+            raise ValueError(f"unknown lm {self.lm!r} (expected one of "
+                             f"{', '.join(LMS)})")
 
     def replace(self, **kw) -> "DenseCapConfig":
         return dataclasses.replace(self, **kw)
@@ -130,14 +156,18 @@ class DenseCapConfig:
     def is_vit(self) -> bool:
         return self.trunk != "vgg16"
 
+    @property
+    def is_textdec(self) -> bool:
+        return self.lm == "grit_textdec"
+
     def to_json(self) -> str:
-        """The JAX `from_json` reads a VGG-16 config's JSON, which leaves
-        out the trunk fields (it has no ViTDet)."""
+        """The JAX `from_json` reads the JSON of a config it can run, which
+        leaves out the port's own fields (`PORT_ONLY`)."""
         d = dataclasses.asdict(self)
         d["compute_dtype"] = str(self.compute_dtype).removeprefix("torch.")
-        if not self.is_vit:
-            d = {k: v for k, v in d.items()
-                 if k != "trunk" and not k.startswith("vit_")}
+        if not (self.is_vit or self.is_textdec
+                or self.test_final_max_boxes is not None):
+            d = {k: v for k, v in d.items() if not k.startswith(PORT_ONLY)}
         return json.dumps(d)
 
     @classmethod

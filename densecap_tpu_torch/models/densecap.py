@@ -7,6 +7,11 @@ package vmaps a single-image function; here the batch dimension is real
 and each image carries its own extent. All B*K rows decode together,
 greedily or by beam search, which equals the vmapped per-image loops
 because finished rows emit END with logprob 0.
+
+The language model is DenseCap's LSTM (`models/lstm.py`), conditioned on
+each region's fc7 code, or with `cfg.lm` "grit_textdec" GRiT's text
+decoder (`models/textdec.py`, greedy inference only), conditioned on each
+final box's features pooled again from the trunk's map.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from ..ops.transforms import apply_box_transform
 from ..utils.profiling import span
 from .localization import gather_rows, localize_test, localize_train
 from .lstm import get_target
+from .textdec import TEXTDEC_BEAM
+from .vgg16 import feat_extent
 
 
 class TestOutput(NamedTuple):
@@ -33,6 +40,17 @@ class TestOutput(NamedTuple):
     caption_logprobs: torch.Tensor  # (B, K, T) per-token logprobs
     valid: torch.Tensor             # (B, K) bool
     num: torch.Tensor               # (B,) int32
+
+
+class Detections(NamedTuple):
+    """What `DenseCap._detect` gives: K RoIs an image."""
+
+    valid: torch.Tensor   # (B, K) bool, the RoIs that exist
+    codes: torch.Tensor   # (B, K, D) fc7 codes
+    scores: torch.Tensor  # (B, K) objectness logits
+    boxes: torch.Tensor   # (B, K, 4) final xcycwh boxes
+    feats: torch.Tensor   # (B, Hf, Wf, C) f32 trunk features, NHWC
+    extent: tuple         # (fh, fw) (B,) int32 feature extents
 
 
 class DenseCap(nn.Module):
@@ -80,6 +98,13 @@ class DenseCap(nn.Module):
                                         and not self.cfg.static_freeze_cnn):
                 return self.trunk2(x, eh, ew)
 
+    def feat_extent(self, img_h, img_w):
+        """Each image's extent on the feature map, by the trunk's own rule:
+        the ViT's patch grid, or VGG-16's four floor-halvings."""
+        if self.vit is not None:
+            return self.vit.feat_extent(img_h, img_w)
+        return feat_extent(img_h, img_w)
+
     def _linear(self, x, w, b):
         return dot_f32(x, w, self.cfg.compute_dtype) + b
 
@@ -100,6 +125,7 @@ class DenseCap(nn.Module):
             loc = localize_train(self.rpn, feats, img_h, img_w, gt_boxes,
                                  gt_labels, gt_valid, generator, cfg,
                                  cfg.anchor_tensor(images.device),
+                                 extent=self.feat_extent(img_h, img_w),
                                  debug_sampler=debug_sampler)
         B, R = loc.roi_boxes.shape[:2]
         P = loc.pos_valid.shape[1]
@@ -141,14 +167,14 @@ class DenseCap(nn.Module):
 
     def _detect(self, images, img_h, img_w, rpn_nms_thresh=None,
                 max_proposals=None):
-        """Trunk, localization and recognition: (RoI valid (B, K), codes
-        (B, K, D), objectness (B, K), final xcycwh boxes (B, K, 4))."""
+        """Trunk, localization and recognition -> `Detections`."""
         img_h, img_w = img_h.float(), img_w.float()
         feats = self.features(images, img_h, img_w)
+        extent = self.feat_extent(img_h, img_w)
         with span("localize"):
             loc = localize_test(
                 self.rpn, feats, img_h, img_w, self.cfg,
-                self.cfg.anchor_tensor(images.device),
+                self.cfg.anchor_tensor(images.device), extent=extent,
                 nms_thresh=rpn_nms_thresh, max_proposals=max_proposals)
         B, K = loc.roi_boxes.shape[:2]
         with span("recog"):
@@ -158,7 +184,9 @@ class DenseCap(nn.Module):
             trans = self._linear(codes, self.box_w,
                                  self.box_b).reshape(B, K, 4)
             boxes = apply_box_transform(loc.roi_boxes, trans)
-        return loc.roi_valid, codes.reshape(B, K, -1), scores, boxes
+        return Detections(loc.roi_valid, codes.reshape(B, K, -1), scores,
+                          boxes, feats.permute(0, 2, 3, 1).contiguous(),
+                          extent)
 
     @torch.inference_mode()
     def forward_test_batch(self, images, img_h, img_w, *,
@@ -169,35 +197,46 @@ class DenseCap(nn.Module):
         """images: (B, H, W, 3) f32 canvases (any H, W; a canvas cropped to
         a bucket gives the outputs of the square one); img_h / img_w: (B,)
         f32 true sizes on the canvas. `use_beam` > 0 decodes with a beam
-        search of that width, 0 greedily."""
+        search of that width, 0 greedily. The outputs hold the
+        `cfg.test_final_max_boxes` rows an image that the final NMS keeps
+        (K, the proposals, when it is unset or there is no final NMS)."""
         cfg = self.cfg
+        if use_beam > 0 and cfg.is_textdec:
+            raise ValueError(TEXTDEC_BEAM)
         final_nms = (cfg.test_final_nms_thresh if final_nms_thresh is None
                      else final_nms_thresh)
         with span("infer.forward", images.device):
-            valid, codes, scores, boxes = self._detect(
-                images, img_h, img_w, rpn_nms_thresh, max_proposals)
+            det = self._detect(images, img_h, img_w, rpn_nms_thresh,
+                               max_proposals)
+            valid, codes, scores, boxes = det[:4]
             B, K = scores.shape
+            M = min(K, cfg.test_final_max_boxes or K) if final_nms > 0 else K
             with span("final_nms"):
                 if cfg.clip_final_boxes:
                     boxes, _ = clip_boxes(boxes, img_w.float()[:, None],
                                           img_h.float()[:, None])
                 if final_nms > 0:
                     idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores,
-                                     final_nms, K, valid=valid)
+                                     final_nms, M, valid=valid)
                     boxes, scores, codes = (gather_rows(x, idx)
                                             for x in (boxes, scores, codes))
 
-            if use_beam > 0:
+            if cfg.is_textdec:
+                cache = self.lm.prefill(det.feats, boxes, img_h.float(),
+                                        img_w.float(), det.extent,
+                                        cfg.seq_length)
+                captions, lps = self.lm.greedy_decode(cache, cfg.seq_length)
+            elif use_beam > 0:
                 captions, lps, _ = self.lm.beamsearch(
-                    codes.reshape(B * K, -1), cfg.seq_length, use_beam)
+                    codes.reshape(B * M, -1), cfg.seq_length, use_beam)
             else:
                 captions, lps = self.lm.greedy_decode(
-                    codes.reshape(B * K, -1), cfg.seq_length)
+                    codes.reshape(B * M, -1), cfg.seq_length)
             T = captions.shape[1]
             return TestOutput(
                 boxes=boxes, scores=scores,
-                captions=captions.reshape(B, K, T),
-                caption_logprobs=lps.reshape(B, K, T),
+                captions=captions.reshape(B, M, T),
+                caption_logprobs=lps.reshape(B, M, T),
                 valid=valid, num=valid.sum(1, dtype=torch.int32))
 
     @torch.inference_mode()
@@ -211,7 +250,8 @@ class DenseCap(nn.Module):
         slots repeat the top box.
         """
         with span("infer.forward", images.device):
-            valid, codes, scores, boxes = self._detect(images, img_h, img_w)
+            valid, codes, scores, boxes = self._detect(images, img_h,
+                                                       img_w)[:4]
             with span("final_nms"):
                 idx, valid = nms(xcycwh_to_x1y1x2y2(boxes), scores,
                                  final_nms_thresh, max_boxes, valid=valid)

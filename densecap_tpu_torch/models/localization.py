@@ -18,7 +18,6 @@ from ..ops.roi_align import roi_align
 from ..ops.sampler import sample_rois
 from ..ops.transforms import invert_box_transform
 from ..utils.profiling import span
-from .vgg16 import feat_extent
 
 
 class LocalizeTrainOut(NamedTuple):
@@ -62,13 +61,15 @@ def gather_rows(x, idx):
 
 
 def localize_train(rpn, feats, img_h, img_w, gt_boxes, gt_labels, gt_valid,
-                   generator, cfg, anchor_sizes,
+                   generator, cfg, anchor_sizes, *, extent,
                    debug_sampler=None) -> LocalizeTrainOut:
     """feats: (B, C, H', W') f32 channels_last; img_h / img_w: (B,) f32;
-    gt_boxes (B, G, 4) xcycwh, gt_labels (B, G, L), gt_valid (B, G).
-    debug_sampler: optional dict(pos=(P,), neg=(M,)) sampler ordinals."""
+    extent: (fh, fw), each image's extent on the map by the trunk's rule
+    (`DenseCap.feat_extent`); gt_boxes (B, G, 4) xcycwh, gt_labels (B, G,
+    L), gt_valid (B, G). debug_sampler: optional dict(pos=(P,), neg=(M,))
+    sampler ordinals."""
     B, _, Hf, Wf = feats.shape
-    fh, fw = feat_extent(img_h, img_w)
+    fh, fw = extent
     center_ok = _anchor_center_valid(Hf, Wf, anchor_sizes.shape[0], fh, fw)
     with span("rpn"):
         rpn_out = rpn(feats, anchor_sizes, cfg.field_centers,
@@ -130,9 +131,10 @@ def localize_train(rpn, feats, img_h, img_w, gt_boxes, gt_labels, gt_valid,
         losses=losses)
 
 
-def localize_test(rpn, feats, img_h, img_w, cfg, anchor_sizes, *,
+def localize_test(rpn, feats, img_h, img_w, cfg, anchor_sizes, *, extent,
                   nms_thresh=None, max_proposals=None) -> LocalizeTestOut:
-    """feats: (B, C, H', W') f32 channels_last; img_h / img_w: (B,) f32."""
+    """feats: (B, C, H', W') f32 channels_last; img_h / img_w: (B,) f32;
+    extent: (fh, fw), as `localize_train` takes it."""
     nms_thresh = cfg.test_rpn_nms_thresh if nms_thresh is None else nms_thresh
     K = cfg.test_max_proposals if max_proposals is None else max_proposals
     _, _, Hf, Wf = feats.shape
@@ -140,7 +142,7 @@ def localize_test(rpn, feats, img_h, img_w, cfg, anchor_sizes, *,
     with span("rpn"):
         rpn_out = rpn(feats, anchor_sizes, cfg.field_centers)
     with span("proposals"):
-        fh, fw = feat_extent(img_h, img_w)
+        fh, fw = extent
         valid = _anchor_center_valid(Hf, Wf, anchor_sizes.shape[0], fh, fw)
         boxes, clip_valid = clip_boxes(rpn_out.boxes, img_w[:, None],
                                        img_h[:, None])

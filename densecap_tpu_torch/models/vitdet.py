@@ -50,7 +50,7 @@ from torch import nn
 
 from ..config import VGG_MEAN_BGR
 from ..ops import vit_attention
-from ..ops.linear import dot_f32, frozen
+from ..ops.linear import dot_f32, frozen, linear_cd, linear_f32
 from ..utils.profiling import count, span
 
 VIT_MEAN_RGB = (123.675, 116.28, 103.53)
@@ -77,23 +77,6 @@ def vit_input(images, img_h, img_w, size):
     cols = torch.arange(W, device=dev)[None, :] < img_w[:, None]
     x = x * (rows[:, :, None] & cols[:, None, :])[..., None]
     return F.pad(x, (0, 0, 0, size - W, 0, size - H))
-
-
-def linear_cd(x, w, b, cd):
-    """`x @ w + b` accumulated in f32 and rounded once to the compute
-    dtype `cd` (a bf16 product with its bias in cuBLAS's epilogue on the
-    card; widened operands on the CPU, which is exact)."""
-    if x.is_cuda and cd != torch.float32:
-        return torch.addmm(b.to(cd), x.to(cd), w.to(cd))
-    return (dot_f32(x, w, cd) + b).to(cd)
-
-
-def linear_f32(x, w, b, cd):
-    """`dot_f32(x, w, cd) + b`: on the card one bf16 product with an f32
-    result and the f32 bias in cuBLAS's epilogue."""
-    if x.is_cuda and cd != torch.float32:
-        return torch.addmm(b, x.to(cd), w.to(cd), out_dtype=torch.float32)
-    return dot_f32(x, w, cd) + b
 
 
 def attention_core(q, k, v, rel_h_table, rel_w_table, hw, cd, table=None):
@@ -222,6 +205,13 @@ class ViTDet(nn.Module):
         self.neck_ln1 = nn.ParameterList([frozen(t) for t in neck[1]])
         self.neck_w2 = frozen(neck[2])
         self.neck_ln2 = nn.ParameterList([frozen(t) for t in neck[3]])
+
+    def feat_extent(self, h, w):
+        """Each (h, w) frame's extent on the patch grid, the patches wholly
+        inside it: floor(h / p) x floor(w / p), int32."""
+        p = self.cfg.vit_patch_size
+        return (torch.div(h, p, rounding_mode="floor").to(torch.int32),
+                torch.div(w, p, rounding_mode="floor").to(torch.int32))
 
     def embed(self, x):
         """(B, S, S, 3) f32 input -> (B, G, G, C) f32 tokens."""

@@ -3,9 +3,11 @@
 `dot_f32` is `x @ w` with operands in the compute dtype and an f32
 result, the twin of the JAX package's `jnp.dot(x.astype(cd),
 w.astype(cd), preferred_element_type=float32)`; `_DotF32` is its card
-form with a hand-written backward; `Linear` is a layer over it, the
-full-precision counterpart of `ops.quant.QuantLinear`; `frozen` makes a
-tensor a parameter without a gradient.
+form with a hand-written backward; `linear_cd` and `linear_f32` add a
+bias to it (in cuBLAS's epilogue on the card) for the inference layers
+of the ViTDet trunk and of the text decoder; `Linear` is a layer over
+`dot_f32`, the full-precision counterpart of `ops.quant.QuantLinear`;
+`frozen` makes a tensor a parameter without a gradient.
 """
 
 from __future__ import annotations
@@ -56,6 +58,23 @@ def dot_f32(x, w, cd):
     if x.is_cuda:
         return _DotF32.apply(x, w, cd)
     return x.to(cd).float() @ w.to(cd).float()
+
+
+def linear_cd(x, w, b, cd):
+    """`x @ w + b` accumulated in f32 and rounded once to the compute
+    dtype `cd` (a bf16 product with its bias in cuBLAS's epilogue on the
+    card; widened operands on the CPU, which is exact)."""
+    if x.is_cuda and cd != torch.float32:
+        return torch.addmm(b.to(cd), x.to(cd), w.to(cd))
+    return (dot_f32(x, w, cd) + b).to(cd)
+
+
+def linear_f32(x, w, b, cd):
+    """`dot_f32(x, w, cd) + b`: on the card one bf16 product with an f32
+    result and the f32 bias in cuBLAS's epilogue."""
+    if x.is_cuda and cd != torch.float32:
+        return torch.addmm(b, x.to(cd), w.to(cd), out_dtype=torch.float32)
+    return dot_f32(x, w, cd) + b
 
 
 class Linear(nn.Module):

@@ -49,6 +49,7 @@ import torch.distributed as dist
 
 from . import distributed
 from .mesh import map_moments, shard_optimizer_state
+from ..models.textdec import TEXTDEC_TRAINING, TextDecoder
 from ..models.vitdet import VIT_TRAINING
 from ..utils.image import normalize_uint8_images
 from ..utils.profiling import span
@@ -115,6 +116,8 @@ class Trainer:
 
     def __init__(self, model, learning_rate=1e-5, beta1=0.9, beta2=0.999,
                  eps=1e-8):
+        if isinstance(getattr(model, "lm", None), TextDecoder):
+            raise ValueError(TEXTDEC_TRAINING)
         if getattr(model, "vit", None) is not None:
             raise ValueError(VIT_TRAINING)
         self.model = model

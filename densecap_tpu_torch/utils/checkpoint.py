@@ -37,7 +37,10 @@
 A ViTDet tree (`cfg.trunk` "vitdet_b") holds its trunk under "vit" in
 place of "trunk1" / "trunk2" (`vit_tree_names` lists its leaves); it
 builds inference models only: `to_torch(..., train=True)` refuses it, and
-so does training under a model group (`--model_parallel`).
+so does training under a model group (`--model_parallel`). A tree whose
+language model is GRiT's text decoder (`cfg.lm` "grit_textdec") holds it
+under "lm" in place of the LSTM (`textdec_tree_names` lists its leaves),
+and builds inference models only too.
 
 A tree that `ops.quant.quantize_for_inference` (or the JAX package's, as
 numpy) has quantized builds an int8 inference model: each quantized layer
@@ -62,6 +65,8 @@ from ..config import DenseCapConfig
 from ..models.densecap import DenseCap
 from ..models.lstm import LanguageModel
 from ..models.rpn import RPN
+from ..models.textdec import (TEXTDEC_TRAINING, Layer, TextDecoder,
+                              is_textdec_tree)
 from ..models.vgg16 import TRUNK1_CFG, TRUNK2_CFG, Recog, Trunk
 from ..models.vitdet import VIT_TRAINING, Attention, Block, ViTDet
 from ..ops.linear import Linear
@@ -217,9 +222,36 @@ def vit_tree_names(cfg):
     return names
 
 
+def textdec_tree_names(cfg, feat_channels):
+    """[(path under "lm", shape, law)] of GRiT's text decoder over
+    `feat_channels`-wide features, in the order `init_params` draws them;
+    laws as `vit_tree_names`'s (N(0, 0.02) as in BERT)."""
+    C, F, V = cfg.textdec_dim, cfg.textdec_ffn, cfg.vocab_size
+    names = [("obj_proj/w", (feat_channels, C), "normal"),
+             ("obj_proj/b", (C,), "zeros"),
+             ("obj_ln/w", (C,), "ones"), ("obj_ln/b", (C,), "zeros"),
+             ("words", (V + 1, C), "normal"),
+             ("pos", (cfg.textdec_positions, C), "normal"),
+             ("emb_ln/w", (C,), "ones"), ("emb_ln/b", (C,), "zeros")]
+    for i in range(cfg.textdec_layers):
+        b = f"layer{i}/"
+        names += [(b + "qkv/w", (C, 3 * C), "normal"),
+                  (b + "qkv/b", (3 * C,), "zeros"),
+                  (b + "out/w", (C, C), "normal"), (b + "out/b", (C,), "zeros"),
+                  (b + "ln1/w", (C,), "ones"), (b + "ln1/b", (C,), "zeros"),
+                  (b + "ffn1/w", (C, F), "normal"),
+                  (b + "ffn1/b", (F,), "zeros"),
+                  (b + "ffn2/w", (F, C), "normal"),
+                  (b + "ffn2/b", (C,), "zeros"),
+                  (b + "ln2/w", (C,), "ones"), (b + "ln2/b", (C,), "zeros")]
+    return names + [("proj/w", (C, V + 1), "normal"),
+                    ("proj/b", (V + 1,), "zeros")]
+
+
 def init_params(cfg, seed=0):
     """Random parameters with the JAX package's tree, names, shapes and
-    laws; a ViTDet config's trunk has `vit_tree_names`'s (no JAX twin)."""
+    laws; a ViTDet config's trunk has `vit_tree_names`'s and a text
+    decoder config's "lm" `textdec_tree_names`'s (no JAX twin)."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -245,12 +277,12 @@ def init_params(cfg, seed=0):
             cin = cout
         return out, cin
 
+    laws = {"normal": lambda s: normal(s, 0.02),
+            "he_out": lambda s: normal(s, (2.0 / (s[0] * s[1] * s[3]))
+                                       ** 0.5),
+            "zeros": lambda s: zeros(*s),
+            "ones": lambda s: np.ones(s, np.float32)}
     if cfg.is_vit:
-        laws = {"normal": lambda s: normal(s, 0.02),
-                "he_out": lambda s: normal(s, (2.0 / (s[0] * s[1] * s[3]))
-                                           ** 0.5),
-                "zeros": lambda s: zeros(*s),
-                "ones": lambda s: np.ones(s, np.float32)}
         vit = _unflatten({path: laws[law](shape)
                           for path, shape, law in vit_tree_names(cfg)})
         trunks, c2 = {"vit": vit}, cfg.vit_out_channels
@@ -274,13 +306,17 @@ def init_params(cfg, seed=0):
              "fc7": {"w": normal((F, F), (2.0 / F) ** 0.5), "b": zeros(F)}}
     V, W, H = cfg.vocab_size, cfg.rnn_encoding_size, cfg.rnn_size
     hs = 1.0 / H ** 0.5
-    lm = {
-        "img_enc": {"w": uniform((F, W), 1.0 / F ** 0.5), "b": zeros(W)},
-        "embed": uniform((V + 2, W), 0.01),
-        "lstm": {"Wx": uniform((W, 4 * H), hs), "Wh": uniform((H, 4 * H), hs),
-                 "b": zeros(4 * H)},
-        "proj": {"w": uniform((H, V + 1), hs), "b": zeros(V + 1)},
-    }
+    if cfg.is_textdec:
+        lm = _unflatten({path: laws[law](shape) for path, shape, law
+                         in textdec_tree_names(cfg, c2)})
+    else:
+        lm = {
+            "img_enc": {"w": uniform((F, W), 1.0 / F ** 0.5), "b": zeros(W)},
+            "embed": uniform((V + 2, W), 0.01),
+            "lstm": {"Wx": uniform((W, 4 * H), hs),
+                     "Wh": uniform((H, 4 * H), hs), "b": zeros(4 * H)},
+            "proj": {"w": uniform((H, V + 1), hs), "b": zeros(V + 1)},
+        }
     return {
         **trunks, "rpn": rpn, "recog": recog,
         "objectness": {"w": normal((F, 1), cfg.std), "b": zeros(1)},
@@ -300,6 +336,9 @@ def to_torch(params, cfg, device, train=False):
     column-parallel `Linear`s over the group. The ranks of data index 0
     must pass the same tree (the same seed or file): `Trainer` then
     broadcasts each shard from there over its data group."""
+    textdec = is_textdec_tree(params["lm"])
+    if train and textdec:
+        raise ValueError(TEXTDEC_TRAINING)
     if train and "vit" in params:
         if distributed.model_size() > 1:
             raise ValueError("--model_parallel: tensor parallelism is not "
@@ -310,6 +349,10 @@ def to_torch(params, cfg, device, train=False):
         raise ValueError(f"the config's trunk is {cfg.trunk!r} but the "
                          f"parameter tree's is "
                          f"{'a ViTDet' if 'vit' in params else 'VGG-16'}")
+    if textdec != cfg.is_textdec:
+        raise ValueError(f"the config's lm is {cfg.lm!r} but the parameter "
+                         f"tree's is {'the' if textdec else 'not the'} "
+                         f"text decoder")
     shards = {}  # layer path -> this rank's ColumnShard of it
     if train and distributed.model_size() > 1:
         for name, dim in param_shard_dims(params).items():
@@ -349,12 +392,11 @@ def to_torch(params, cfg, device, train=False):
         return Trunk(spec, {item[0]: conv(tree[item[0]], wd)
                             for item in spec if item != "M"}, cd)
 
+    def pair(p):
+        return t(p["w"]), t(p["b"])
+
     def vit(tree):
         heads = cfg.vit_num_heads
-
-        def pair(p):
-            return t(p["w"]), t(p["b"])
-
         blocks = []
         for i, window in vit_blocks(cfg):
             b = tree[f"block{i}"]
@@ -374,7 +416,25 @@ def to_torch(params, cfg, device, train=False):
                       t(tree["pos_embed"]), blocks,
                       (w1, pair(n["ln1"]), w2, pair(n["ln2"])))
 
+    def text_decoder(tree):
+        layers = [Layer(linear(b["qkv"]), linear(b["out"]), pair(b["ln1"]),
+                        linear(b["ffn1"]), linear(b["ffn2"]), pair(b["ln2"]),
+                        cfg.textdec_heads, cd)
+                  for b in (tree[f"layer{i}"]
+                            for i in range(cfg.textdec_layers))]
+        return TextDecoder(cfg, linear(tree["obj_proj"]),
+                           pair(tree["obj_ln"]), t(tree["words"]),
+                           t(tree["pos"]), pair(tree["emb_ln"]), layers,
+                           Linear(*linear(tree["proj"])))
+
     rp, lm = params["rpn"], params["lm"]
+    if textdec:
+        language_model = text_decoder(lm)
+    else:
+        language_model = LanguageModel(
+            *linear(lm["img_enc"]), t(lm["embed"]), t(lm["lstm"]["Wx"], wd),
+            t(lm["lstm"]["Wh"], wd), t(lm["lstm"]["b"]),
+            layer(lm["proj"], "lm/proj"), cd)
     if cfg.is_vit:
         trunk1 = trunk2 = None
         vit_trunk = vit(params["vit"])
@@ -392,9 +452,7 @@ def to_torch(params, cfg, device, train=False):
               layer(params["recog"]["fc7"], "recog/fc7"), cd),
         linear(params["objectness"]),
         linear(params["box_reg"]),
-        LanguageModel(*linear(lm["img_enc"]), t(lm["embed"]),
-                      t(lm["lstm"]["Wx"], wd), t(lm["lstm"]["Wh"], wd),
-                      t(lm["lstm"]["b"]), layer(lm["proj"], "lm/proj"), cd),
+        language_model,
         vit=vit_trunk,
     )
     if not train:
@@ -444,6 +502,21 @@ def from_torch(model):
             "ln2": pair(v.neck_ln2)}
         return tree
 
+    def text_decoder(d):
+        tree = {"obj_proj": {"w": n(d.obj_w), "b": n(d.obj_b)},
+                "obj_ln": pair(d.obj_ln), "words": n(d.words),
+                "pos": n(d.pos), "emb_ln": pair(d.emb_ln),
+                "proj": linear(d.proj)}
+        for i, b in enumerate(d.layers):
+            tree[f"layer{i}"] = {
+                "qkv": {"w": n(b.qkv_w), "b": n(b.qkv_b)},
+                "out": {"w": n(b.out_w), "b": n(b.out_b)},
+                "ln1": pair(b.ln1),
+                "ffn1": {"w": n(b.ffn1_w), "b": n(b.ffn1_b)},
+                "ffn2": {"w": n(b.ffn2_w), "b": n(b.ffn2_b)},
+                "ln2": pair(b.ln2)}
+        return tree
+
     rpn, rec, lm = model.rpn, model.recog, model.lm
     trunks = ({"vit": vit(model.vit)} if model.vit is not None else
               {"trunk1": trunk(model.trunk1), "trunk2": trunk(model.trunk2)})
@@ -455,10 +528,11 @@ def from_torch(model):
         "recog": {"fc6": linear(rec.fc6), "fc7": linear(rec.fc7)},
         "objectness": {"w": n(model.obj_w), "b": n(model.obj_b)},
         "box_reg": {"w": n(model.box_w), "b": n(model.box_b)},
-        "lm": {"img_enc": {"w": n(lm.enc_w), "b": n(lm.enc_b)},
-               "embed": n(lm.embed_w),
-               "lstm": {"Wx": n(lm.Wx), "Wh": n(lm.Wh), "b": n(lm.b)},
-               "proj": linear(lm.proj)},
+        "lm": (text_decoder(lm) if isinstance(lm, TextDecoder) else
+               {"img_enc": {"w": n(lm.enc_w), "b": n(lm.enc_b)},
+                "embed": n(lm.embed_w),
+                "lstm": {"Wx": n(lm.Wx), "Wh": n(lm.Wh), "b": n(lm.b)},
+                "proj": linear(lm.proj)}),
     }
 
 

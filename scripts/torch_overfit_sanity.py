@@ -249,7 +249,8 @@ def rpn_recall(model, data, n=4):
     for i in range(n):
         feats = model.features(data.images[i:i + 1], h, w)
         loc = localize_test(model.rpn, feats, h, w, cfg,
-                            cfg.anchor_tensor(dev))
+                            cfg.anchor_tensor(dev),
+                            extent=model.feat_extent(h, w))
         props = loc.roi_boxes[0][loc.roi_valid[0]]
         gt = torch.from_numpy(data.gt_boxes[i][data.gt_valid[i]]).to(dev)
         stats = eval_box_recall(props, gt, ns=(10, 50))

@@ -21,7 +21,7 @@ from densecap_tpu.models.rpn import apply_rpn
 from densecap_tpu.models.vgg16 import (TRUNK1_CFG, TRUNK2_CFG, apply_recog,
                                        apply_trunk)
 from densecap_tpu.utils import checkpoint as jckpt
-from densecap_tpu_torch.config import DenseCapConfig
+from densecap_tpu_torch.config import PORT_ONLY, DenseCapConfig
 from densecap_tpu_torch.utils.checkpoint import (init_params, load_params,
                                                  to_torch)
 
@@ -107,8 +107,9 @@ def test_config_reads_jax_json():
             assert getattr(cfg, f.name) == getattr(
                 JCFG.replace(test_pre_nms_topk=77), f.name), f.name
         elif f.name not in jax_names:
-            # the port's own trunk fields (ViTDet): the VGG-16 defaults
-            assert f.name == "trunk" or f.name.startswith("vit_"), f.name
+            # the port's own fields (the ViTDet trunk's, GRiT's text
+            # decoder's, the final NMS's cut): the JAX package's defaults
+            assert f.name.startswith(PORT_ONLY), f.name
             assert getattr(cfg, f.name) == f.default, f.name
     assert DenseCapConfig.from_json(cfg.to_json()) == cfg
 

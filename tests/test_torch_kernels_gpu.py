@@ -12,8 +12,9 @@ features and its backward (K2b) within 1e-5 (d feats) and 1e-4 (d boxes)
 of the plain autograd gradient's scale, the fused conv+pool (K3) in f32 within 1e-4 and in
 bf16 no worse than the plain version against an f32 oracle, the greedy
 decode's vocab head (K4) with the plain head's tokens outside near ties,
-its first index on ties and its logprobs within 1e-4, alone and through
-a whole decode, the greedy decode's LSTM cell (K5) within CELL_TOL of the
+its first index on ties and its logprobs within 1e-4, alone (at the
+LSTM's widths and at GRiT's text decoder's, K = 768 and N = 30522) and
+through a whole decode, the greedy decode's LSTM cell (K5) within CELL_TOL of the
 plain cell at P = 1..8000 and at widths off its tiles, and through a
 whole decode (bf16 and int8 heads) no further from the plain cell than
 the plain cell is from itself with its gates summed in one product, and
@@ -223,10 +224,11 @@ def test_roi_align_kernel_matches_plain(dev):
     (2048, (7, 7), "plain"),
     (512, (3, 5), "plain"),
     (256, (16, 16), "plain"),
+    (256, (14, 14), "plain"),
     (512, (7, 7), "ext_1x1"),
     (512, (7, 7), "misaligned"),
 ], ids=["c512", "c256", "c6_scalar", "c2048_loop", "out_3x5", "out_16x16",
-        "ext_1x1", "misaligned"])
+        "grit_prefix_14x14", "ext_1x1", "misaligned"])
 def test_roi_align_kernel_shapes_match_plain(dev, C, out_hw, case):
     rng = np.random.default_rng(C + out_hw[0])
     B, Hf, Wf = 3, 23, 29
@@ -711,6 +713,7 @@ def _heads(h, w, b, done0, steps, head=None):
     (8000, HEAD_K, HEAD_N), (8001, HEAD_K, HEAD_N),
     (20000, HEAD_K, HEAD_N),   # more row blocks than SMs: S = 1
     (8000, 1024, HEAD_N),      # one warpgroup a block (G = 1)
+    (800, 768, 30522),         # GRiT's text decoder: 800 rows, BERT's vocab
     (300, 64, 21),             # one vocab tile
     (300, 36, 500),            # K neither a chunk nor 8 floats
 ])

@@ -186,7 +186,8 @@ def test_forward_test_batch_matches_reference(params):
     with torch.no_grad():
         out = model.forward_test_batch(x, h, w)
         loc = localize_test(model.rpn, model.features(x, h, w), h, w, cfg,
-                            cfg.anchor_tensor(CPU))
+                            cfg.anchor_tensor(CPU),
+                            extent=model.feat_extent(h, w))
         want = [ref.forward_test(x[b], h[b], w[b]) for b in range(2)]
     for b, r in enumerate(want):
         assert torch.equal(loc.roi_valid[b], r["roi_valid"])
@@ -322,17 +323,19 @@ def test_spans_and_counters(params):
 
 
 def test_vgg_config_json_is_unchanged():
-    """A VGG-16 config writes no trunk field, so the JAX package reads its
-    JSON; a ViTDet config's JSON reads back the same config."""
+    """A VGG-16 config writes none of the port's own fields (the trunk's,
+    the text decoder's, `test_final_max_boxes`), so the JAX package reads
+    its JSON; a ViTDet config's JSON reads back the same config."""
     from densecap_tpu.config import DenseCapConfig as JaxConfig
+    from densecap_tpu_torch.config import PORT_ONLY
 
     cfg = DenseCapConfig(vocab_size=10000, image_size=544,
                          compute_dtype=torch.float32)
     d = json.loads(cfg.to_json())
-    assert not [k for k in d if k == "trunk" or k.startswith("vit_")]
+    assert not [k for k in d if k.startswith(PORT_ONLY)]
     names = {f.name for f in dataclasses.fields(DenseCapConfig)}
-    assert set(d) == names - {"trunk"} - {n for n in names
-                                          if n.startswith("vit_")}
+    assert set(d) == {n for n in names if not n.startswith(PORT_ONLY)}
+    assert {"trunk", "lm", "test_final_max_boxes"} <= names - set(d)
     jax_cfg = JaxConfig.from_json(cfg.to_json())
     assert jax_cfg.vocab_size == 10000 and jax_cfg.image_size == 544
     vit = tiny()
