@@ -142,10 +142,15 @@ its result on its own line; any failure raises and exits non-zero:
      boxes an image): forward_test_batch's shapes, finite valid slots,
      tokens in [1, V+1], K1, K2 (twice: the 7 x 7 and the 14 x 14 pool),
      K6 and K4 (one a decode step, at most seq_length) launched, peak
-     memory under GRIT_PEAK_GIB; then one decode step's attention alone
-     at the cell's shape (SDPA over the cache's first 196 + 8 columns,
-     800 rows, 12 heads of 64, bf16, 20 calls back to back) against plain
-     f32 and its byte bound;
+     memory under GRIT_PEAK_GIB; the 15 decode steps at 800 rows over the
+     forward's cache, replayed from the graphs the forward captured and
+     eagerly over a copy of that cache (ms a decode each; tokens and
+     logprobs bit-equal with SDPA's math backend, since cuDNN's attention
+     does not repeat itself bit for bit; the capture's host seconds, the
+     graph pool's bytes); then one decode step's attention alone at the cell's shape
+     (SDPA over the cache's first 196 + 8 columns, 800 rows, 12 heads of
+     64, bf16, 20 calls back to back) against plain f32 and its byte
+     bound;
  12. [int8] W8A8 fc6 / fc7 at 8000 rows (B=8 x 1000 RoIs): torch._int_mm
      equal to a float64 product of the same codes; its second operand
      column-major (the layout QuantLinear stores) and row-major; the
@@ -307,6 +312,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import copy
 import inspect
 import io
 import json
@@ -2734,9 +2740,13 @@ def phase_grit(dev):
     """[grit] GRiT's text decoder on the ViTDet-B trunk at full width
     (init_params, seed 0): B=8 1024 x 1024 canvases of 3:4 frames through
     the greedy forward (shapes, finite valid slots, tokens in range, K1 /
-    K2 / K6 / K4 launches, time, peak memory), and one decode step's
-    attention alone at the cell's shape against plain f32 and its byte
-    bound."""
+    K2 / K6 / K4 launches, time, peak memory); the decode's 15 steps
+    replayed from CUDA graphs against the same steps run eagerly (time,
+    bit-equal outputs, the capture's time, the graph pool's bytes); and
+    one decode step's attention alone at the cell's shape against plain
+    f32 and its byte bound."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     T, M, V = GRIT.seq_length, GRIT.test_final_max_boxes, GRIT.vocab_size
     model = to_torch(init_params(GRIT, seed=0), GRIT, dev)
     x, h, w = canvases(dev, B, 1024)
@@ -2756,7 +2766,38 @@ def phase_grit(dev):
           and bool(torch.isfinite(out.caption_logprobs[v]).all())
           and bool(((tok >= 1) & (tok <= V + 1)).all()))
     steps = counts["greedy_head"]
-    del model, out
+    # the 15 steps over the forward's cache: replayed from its graphs, and
+    # eagerly over a copy of the cache (not the decoder's own)
+    lm = model.lm
+    st = lm._graphs
+    if st is None or sorted(st.graphs) != list(range(T)):
+        raise AssertionError("the GRiT forward's steps did not replay "
+                             "CUDA graphs")
+    plain = copy.copy(st.cache)
+    plain.k, plain.v = st.cache.k.clone(), st.cache.v.clone()
+    with torch.inference_mode():
+        replay_ms = cuda_ms(lambda: lm.greedy_decode(st.cache, T), runs=5,
+                            warmup=1)
+        eager_ms = cuda_ms(lambda: lm.greedy_decode(plain, T), runs=5,
+                           warmup=1)
+        # cuDNN's attention does not repeat its output bit for bit from
+        # call to call: the paths are compared with SDPA's math backend
+        with sdpa_kernel(SDPBackend.MATH):
+            seq_g, lps_g = lm.greedy_decode(st.cache, T)
+            seq_e, lps_e = lm.greedy_decode(plain, T)
+    same = torch.equal(seq_g, seq_e) and torch.equal(lps_g, lps_e)
+    pool = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(st.pool))
+    print(f"[grit] the decode's {T} steps at {st.cache.rows} rows: replayed "
+          f"from CUDA graphs {replay_ms:.3f} ms, eager {eager_ms:.3f} ms "
+          f"(CUDA events around greedy_decode, median of 5); outputs "
+          f"bit-equal with SDPA's math backend {same}; capture {st.capture_s:.3f} s host over "
+          f"{len(st.graphs)} positions x {len(st.graphs[0])} segments; "
+          f"graph pool {pool} bytes")
+    if not same:
+        raise AssertionError("the replayed GRiT steps disagree with the "
+                             "eager steps")
+    del model, out, lm, st, plain, seq_g, lps_g, seq_e, lps_e
     torch.cuda.empty_cache()
     # one step's attention at text position t = 7: 800 rows' q against
     # the first 196 + 8 columns of a (rows, heads, 196 + T, 64) cache

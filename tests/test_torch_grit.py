@@ -339,3 +339,51 @@ def test_config_json_round_trip():
     assert DenseCapConfig.from_json(cfg.to_json()) == cfg
     with pytest.raises(ValueError, match="unknown lm"):
         DenseCapConfig(lm="gpt")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cpu_steps_stay_eager(params, dtype):
+    """Off the card no step replays a graph, in either dtype: the decoder
+    keeps no graph state, each prefill hands out a cache of its own, and
+    a recorded forward counts no `textdec.graph_steps`, one `textdec.attn`
+    a layer a step."""
+    model = ckpt.to_torch(params, tiny(dtype), CPU)
+    lm = model.lm
+    feats, boxes, _ = prefix_inputs()
+    hw = torch.tensor([128.0]), torch.tensor([112.0])
+    args = (feats.permute(1, 2, 0)[None].contiguous(), boxes[None], *hw,
+            model.feat_extent(*hw), T)
+    with torch.no_grad():
+        assert lm.prefill(*args) is not lm.prefill(*args)
+    since = prof.STORE.added
+    was = prof.set_recording(True)
+    try:
+        with torch.no_grad():
+            model.forward_test_batch(*images())
+    finally:
+        prof.set_recording(was)
+    recs = list(prof.STORE.records)[len(prof.STORE.records)
+                                    - (prof.STORE.added - since):]
+    decode = [r for r in recs if r.name == "textdec.decode"]
+    assert len(decode) == 1
+    steps = decode[0].counters["textdec.steps"][0]
+    assert steps == T and "textdec.graph_steps" not in decode[0].counters
+    assert sum(r.name == "textdec.attn" for r in recs) == 2 * steps
+    assert lm._graphs is None
+
+
+def test_successive_forwards_keep_their_outputs(params):
+    """A forward's outputs stay as they were while the next forward, on
+    other images, runs: no call hands out a buffer a later call
+    rewrites."""
+    model = ckpt.to_torch(params, tiny(), CPU)
+    with torch.no_grad():
+        first = model.forward_test_batch(*images(seed=1))
+        kept = [t.clone() for t in (first.boxes, first.captions,
+                                    first.caption_logprobs)]
+        second = model.forward_test_batch(*images(seed=2))
+    assert not torch.equal(second.caption_logprobs, kept[2])
+    for t, k in zip((first.boxes, first.captions, first.caption_logprobs),
+                    kept):
+        assert torch.equal(t, k)

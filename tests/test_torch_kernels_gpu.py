@@ -25,9 +25,14 @@ inputs it does not take refused; the int8 product of
 `ops/quant.py` on the card identical to the CPU's; each kernel launched
 on its tensors' device from a thread whose current device is another
 (skipped with fewer than two cards); two model replicas on one card
-(`parallel.mesh.Replicas`) equal to the model alone; and the loader over
+(`parallel.mesh.Replicas`) equal to the model alone; the loader over
 an h5 the port's codec wrote, through the train CLI's copy into one
-train step on the card.
+train step on the card; and GRiT's text decoder at full width, its steps
+replayed from CUDA graphs equal bit for bit to the eager steps (at 800
+and 100 rows, across calls, where END stops the loop early), a call's
+outputs kept through the next call, a call on another stream and the f32
+decoder eager, and the benchmark control's faults reaching the replayed
+steps.
 """
 
 import threading
@@ -1195,3 +1200,219 @@ def test_vit_attention_refuses_what_k6_does_not_take(dev, case):
     with pytest.raises(ValueError):
         va.attention(q, k, v, rh, rw, hw)
     assert build.launches == NONE
+
+
+# GRiT's text decoder: the steps replayed from CUDA graphs against the
+# eager steps, at the decoder's full widths (6 layers of 768, 12 heads,
+# FFN 3072, 30 522 classes) and the cell's 196 object tokens a row. The
+# attention runs eagerly on both paths; cuDNN's, which SDPA picks at these
+# shapes, does not repeat its output bit for bit from one call to the next
+# (two eager decodes of one cache differ), so the paths are compared with
+# SDPA's math backend.
+TEXTDEC_T = 15
+
+
+def _math_attention():
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    return sdpa_kernel(SDPBackend.MATH)
+
+
+def _textdec(dev, seed=5, end_bias=0.0, dtype=torch.bfloat16):
+    """A text decoder with weights from `seed` (BERT's N(0, 0.02), biases
+    and LayerNorms off their init), `end_bias` added to END's bias."""
+    from densecap_tpu_torch.config import DenseCapConfig
+    from densecap_tpu_torch.models.textdec import Layer, TextDecoder
+    from densecap_tpu_torch.ops.linear import Linear
+
+    cfg = DenseCapConfig(trunk="vitdet_b", lm="grit_textdec",
+                         vocab_size=30521, test_final_max_boxes=100,
+                         compute_dtype=dtype)
+    C, F, N, heads = 768, 3072, 30522, 12
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape, std=0.02, dt=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dt)
+
+    def linear(n_in, n_out):
+        return normal(n_in, n_out, dt=dtype), normal(n_out)
+
+    def ln():
+        return normal(C, std=0.1) + 1, normal(C, std=0.1)
+
+    layers = [Layer(linear(C, 3 * C), linear(C, C), ln(), linear(C, F),
+                    linear(F, C), ln(), heads, dtype) for _ in range(6)]
+    w, b = linear(C, N)
+    b[-1] += end_bias
+    return TextDecoder(cfg, linear(256, C), ln(), normal(N, C), normal(40, C),
+                       ln(), layers, Linear(w, b))
+
+
+def _prefix(dev, P, seed):
+    """P // 100 images' (64, 64, 256) feature maps and 100 boxes each on
+    their 1024 x 768 frames: the prefill's inputs."""
+    B = P // 100
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn((B, 64, 64, 256), generator=g, device=dev)
+    h = torch.full((B,), 768.0, device=dev)
+    w = torch.full((B,), 1024.0, device=dev)
+    xy = torch.rand((B, 100, 2), generator=g, device=dev) * torch.tensor(
+        [900.0, 650.0], device=dev) + 60
+    wh = torch.rand((B, 100, 2), generator=g, device=dev) * 300 + 16
+    return feats, torch.cat([xy, wh], -1), h, w, feat_extent(h, w)
+
+
+def _decode(dec, inputs, recorded=False):
+    """prefill and greedy_decode under inference mode -> (seq, lps, cache,
+    the decode span's counters, its `textdec.attn` spans)."""
+    from densecap_tpu_torch.utils import profiling as prof
+
+    since = prof.STORE.added
+    was = prof.set_recording(recorded)
+    try:
+        with torch.inference_mode():
+            with prof.span("test.decode"):
+                cache = dec.prefill(*inputs, TEXTDEC_T)
+                seq, lps = dec.greedy_decode(cache, TEXTDEC_T)
+    finally:
+        prof.set_recording(was)
+    torch.cuda.synchronize()
+    recs = list(prof.STORE.records)[len(prof.STORE.records)
+                                    - (prof.STORE.added - since):]
+    span = [r for r in recs if r.name == "textdec.decode"]
+    counters = {k: c for k, (c, _) in (span[0].counters or {}).items()
+                } if span else {}
+    return seq, lps, cache, counters, sum(r.name == "textdec.attn"
+                                          for r in recs)
+
+
+def _eager(dec, cache):
+    """greedy_decode over a copy of `cache` made before the decode wrote
+    it: a cache that is not the decoder's own runs eagerly."""
+    import copy
+
+    plain = copy.copy(cache)
+    plain.k, plain.v = cache.k.clone(), cache.v.clone()
+    return plain
+
+
+@pytest.mark.parametrize("P", [800, 100])
+def test_textdec_graph_steps_equal_the_eager_steps(dev, P):
+    """Over the decoder's own cache the steps replay graphs, captured in
+    the first call: tokens and logprobs equal the eager steps' over a copy
+    of the same cache bit for bit, in the capturing call and in the next;
+    every step counted as a graph step, one attention span a layer a
+    step."""
+    dec = _textdec(dev)
+    inputs = _prefix(dev, P, seed=P)
+    with torch.inference_mode(), _math_attention():
+        cache = dec.prefill(*inputs, TEXTDEC_T)
+        plain = _eager(dec, cache)
+        seq, lps = dec.greedy_decode(cache, TEXTDEC_T)
+        seq_e, lps_e = dec.greedy_decode(plain, TEXTDEC_T)
+    st = dec._graphs
+    assert st is not None and st.cache is cache
+    assert sorted(st.graphs) == list(range(TEXTDEC_T))
+    assert torch.equal(seq, seq_e) and torch.equal(lps, lps_e)
+    with _math_attention():
+        seq2, lps2, cache2, counters, attn = _decode(dec, inputs,
+                                                     recorded=True)
+    assert cache2 is cache
+    assert torch.equal(seq2, seq_e) and torch.equal(lps2, lps_e)
+    assert counters["textdec.steps"] == TEXTDEC_T
+    assert counters["textdec.graph_steps"] == TEXTDEC_T
+    assert counters["decode.head_steps"] == TEXTDEC_T
+    assert attn == 6 * TEXTDEC_T
+
+
+def test_textdec_graph_outputs_survive_the_next_call(dev):
+    """Two calls on different prefixes: the first call's outputs are the
+    same after the second, which equals its own eager decode; a call on
+    another stream runs eagerly, over a cache of its own, and agrees."""
+    dec = _textdec(dev)
+    first = _decode(dec, _prefix(dev, 800, seed=1))
+    kept = first[0].clone(), first[1].clone()
+    inputs = _prefix(dev, 800, seed=2)
+    with torch.inference_mode(), _math_attention():
+        cache = dec.prefill(*inputs, TEXTDEC_T)
+        plain = _eager(dec, cache)
+        seq, lps = dec.greedy_decode(cache, TEXTDEC_T)
+        seq_e, lps_e = dec.greedy_decode(plain, TEXTDEC_T)
+    assert torch.equal(first[0], kept[0]) and torch.equal(first[1], kept[1])
+    assert not torch.equal(lps, kept[1])
+    assert torch.equal(seq, seq_e) and torch.equal(lps, lps_e)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), _math_attention():
+        seq_s, lps_s, cache_s, counters, _ = _decode(dec, inputs,
+                                                     recorded=True)
+    assert cache_s is not cache and dec._graphs.cache is cache
+    assert "textdec.graph_steps" not in counters
+    assert torch.equal(seq_s, seq) and torch.equal(lps_s, lps)
+
+
+def test_textdec_graph_steps_stop_where_the_eager_steps_stop(dev):
+    """END's bias raised so that every row ends within a few steps (at
+    these weights END's logit trails the best by 1.7-2.4 in 98% of the
+    rows): the replayed loop stops after the same step as the eager one,
+    every step it ran a graph step, with the same outputs."""
+    from densecap_tpu_torch.utils import profiling as prof
+
+    dec = _textdec(dev, end_bias=2.4)
+    inputs = _prefix(dev, 800, seed=3)
+    with torch.inference_mode(), _math_attention():
+        plain = _eager(dec, dec.prefill(*inputs, TEXTDEC_T))
+    with _math_attention():
+        seq, lps, _, counters, attn = _decode(dec, inputs, recorded=True)
+    was = prof.set_recording(True)
+    since = prof.STORE.added
+    try:
+        with torch.inference_mode(), _math_attention():
+            seq_e, lps_e = dec.greedy_decode(plain, TEXTDEC_T)
+    finally:
+        prof.set_recording(was)
+    recs = list(prof.STORE.records)[len(prof.STORE.records)
+                                    - (prof.STORE.added - since):]
+    eager = [r for r in recs if r.name == "textdec.decode"][0].counters
+    steps = counters["textdec.steps"]
+    assert 1 < steps < TEXTDEC_T
+    assert steps == eager["textdec.steps"][0]
+    assert counters["textdec.graph_steps"] == steps
+    assert "textdec.graph_steps" not in eager
+    assert attn == 6 * steps
+    assert bool((seq[:, steps - 1:] == 30522).all())
+    assert torch.equal(seq, seq_e) and torch.equal(lps, lps_e)
+
+
+@pytest.mark.parametrize("kind", ["shift", "fp8", "prefix_layer"])
+def test_textdec_faults_change_the_graph_steps(dev, kind):
+    """The benchmark control's faults (`benchmark/control_grit.py`),
+    applied before the decoder is built, reach the replayed steps: each
+    changes the tokens or the logprobs of the sound graph path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "control_grit.py"
+    spec = importlib.util.spec_from_file_location("control_grit", path)
+    control = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(control)
+    inputs = _prefix(dev, 800, seed=4)
+    seq, lps = _decode(_textdec(dev), inputs)[:2]
+    with control.FAULTS[kind]():
+        dec = _textdec(dev)
+        seq_f, lps_f, cache, counters, _ = _decode(dec, inputs,
+                                                   recorded=True)
+    assert dec._graphs.cache is cache
+    assert counters["textdec.graph_steps"] == TEXTDEC_T
+    assert not (torch.equal(seq_f, seq) and torch.equal(lps_f, lps))
+
+
+def test_textdec_f32_on_the_card_stays_eager(dev):
+    """In f32 the head is not K4 and no step replays a graph."""
+    dec = _textdec(dev, dtype=torch.float32)
+    seq, lps, cache, counters, attn = _decode(dec, _prefix(dev, 100, seed=6),
+                                              recorded=True)
+    assert dec._graphs is None
+    assert "textdec.graph_steps" not in counters
+    assert "decode.head_steps" not in counters
+    assert counters["textdec.steps"] == TEXTDEC_T == attn // 6
